@@ -1,0 +1,111 @@
+"""PNG read/write with the standard library (zlib + struct).
+
+Counterpart of the JAX package's image I/O (`dataset_readers._load_image`,
+`render_modes._save_png`), which goes through Pillow/imageio; the port
+carries its own codec so that it needs neither. It covers what those paths
+use: 8-bit, non-interlaced gray, RGB and RGBA, all five row filters on read.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 6: 4}          # PNG color type -> samples per pixel
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    data = np.frombuffer(raw, np.uint8)
+    if data.size != height * (stride + 1):
+        raise ValueError("PNG: image data size does not match the header")
+    rows = data.reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(height):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:          # Sub: running sum per channel, mod 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:          # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):     # Average / Paeth: left depends on output
+            cur = line.copy()
+            zero = np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                left = cur[x - bpp:x] if x else zero
+                up = prev[x:x + bpp]
+                if ftype == 3:
+                    pred = (left + up) >> 1
+                else:
+                    pred = _paeth(left, up, prev[x - bpp:x] if x else zero)
+                cur[x:x + bpp] = (line[x:x + bpp] + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG: unknown row filter {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """-> uint8 array (H, W) for gray, (H, W, 3|4) for RGB/RGBA."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    width, height, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color "
+                         f"type {color}, interlace {interlace}); 8-bit "
+                         "non-interlaced gray/RGB/RGBA only")
+    ch = _CHANNELS[color]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width * ch, ch)
+    return pixels.reshape(height, width, ch) if ch > 1 else \
+        pixels.reshape(height, width)
+
+
+def _chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 (H, W) gray or (H, W, 3|4) RGB/RGBA image."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png: expected uint8, got {img.dtype}")
+    if img.ndim == 2:
+        color = 0
+    elif img.ndim == 3 and img.shape[2] in (3, 4):
+        color = 2 if img.shape[2] == 3 else 6
+    else:
+        raise ValueError(f"write_png: unsupported shape {img.shape}")
+    height, width = img.shape[:2]
+    rows = img.reshape(height, -1)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + _chunk(b"IEND", b""))
