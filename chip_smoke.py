@@ -3,18 +3,27 @@
     python3 chip_smoke.py          # one CUDA card; builds into build/
 
 Phases (any failure exits non-zero):
-  1. device: card name and power limit;
+  1. device: card name and power limit, the TF32 flags (both must be off);
   2. build: every CUDA kernel of the port, compiled from csrc/ with nvcc;
   3. each kernel against its plain PyTorch version on the card: the bench
      scene (bench.py's recipe: 43,132 Gaussians, 400x400, SH degree 3, the
      8x256 Blender deform MLP at t=0.5) and the small blend scenes of
-     tests/test_pallas_blend.py, at atol 5e-5 / rtol 1e-4;
-  4. the main path: a D-NeRF-format dataset and a model directory at the
-     bench scale, written by the port's own writers, rendered through
-     `d3gs_tpu_torch.render.main([... "--mode", "render", "--benchmark"])`,
-     with the kernels' launch counts read around that call;
-  5. timings of the render stages at the bench shape (CUDA events);
-  6. one JSON line per the kernels, the card, and the final status line.
+     tests/test_pallas_blend.py; the forward at atol 5e-5 / rtol 1e-4, the
+     backward (with and without the depth term) relative to its largest
+     gradient at that file's tolerances;
+  4. the render main path: a D-NeRF-format dataset and a model directory at
+     the bench scale, written by the port's own writers, rendered through
+     `d3gs_tpu_torch.render.main([... "--mode", "render", "--benchmark"])`;
+  4b. the training main path: `d3gs_tpu_torch.train.__main__.main` on that
+     dataset with bench.py's point cloud, 20 iterations through warm-up,
+     deform steps, densification, a PSNR evaluation and a checkpoint, which
+     `render.main` then renders; each path's kernel launches are read
+     around its call;
+  5. timings at the bench shape (CUDA events, torch.profiler): the render
+     stages and the frame, the train step and its layers, each kernel
+     alone, through its wrapper and in its plain version;
+  6. the card, one JSON line of the kernels (launches from the training
+     main path), and the final status line.
 It imports nothing of JAX or of the JAX package `d3gs_tpu`.
 """
 from __future__ import annotations
@@ -33,6 +42,11 @@ import torch
 WIDTH = HEIGHT = 400
 N_BENCH = 43_132                 # bench.py: the reference's average count
 ATOL, RTOL = 5e-5, 1e-4          # tests/test_pallas_blend.py:72-73
+LAST_MISMATCH_SHARE = 1e-4       # pixels whose last included record may differ
+# backward tolerance relative to the largest gradient
+# (tests/test_pallas_blend.py:90-92, 138-140)
+BWD_TOL = {"random": 2e-4, "random_budget512": 5e-4, "saturated": 5e-4,
+           "overflow48": 5e-4, "bench": 2e-4}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 # transcendentals (exp, log): 16 SFU results / clock / SM (CUDA C programming
@@ -41,6 +55,12 @@ F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 BLEND_FLOPS_PER_EVAL = 15        # alpha quadratic, clamps, T update, accum
 BLEND_SFU_PER_EVAL = 2           # exp(power) and log1p/exp of the T update
+# backward, per pixel-record evaluation (csrc/blend_bwd.cu): ~12 for the
+# alpha, ~10 for T_before/w/g_alpha and the suffix, ~18 for the ten
+# partials; exp(power), log1p, exp(T_before)
+BLEND_BWD_FLOPS_PER_EVAL = 40
+BLEND_BWD_SFU_PER_EVAL = 3
+TRAIN_ITERATIONS = 20            # the training main path's steps
 
 
 def log(msg: str) -> None:
@@ -74,18 +94,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # scenes
 # --------------------------------------------------------------------------
 
-def knn_log_scales(points: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
-    """create_from_pcd's scale init: log sqrt of the mean squared distance to
-    the 3 nearest other points (chunked cdist on the card)."""
-    d2_mean = []
-    for s in range(0, points.shape[0], chunk):
-        d = torch.cdist(points[s:s + chunk], points,
-                        compute_mode="donot_use_mm_for_euclid_dist") ** 2
-        rows = torch.arange(d.shape[0], device=points.device)
-        d[rows, rows + s] = float("inf")
-        d2_mean.append(d.topk(3, dim=1, largest=False).values.mean(dim=1))
-    d2 = torch.cat(d2_mean).clamp_min(1e-7)
-    return torch.log(torch.sqrt(d2))[:, None].expand(-1, 3).contiguous()
+def bench_points():
+    """bench.py:45-48: 43,132 points uniform in [-1.3, 1.3]^3 and uniform
+    RGB colours, numpy seed 0."""
+    rng = np.random.default_rng(0)
+    pts = (rng.random((N_BENCH, 3)) * 2.6 - 1.3).astype(np.float32)
+    cols = rng.uniform(0, 1, (N_BENCH, 3)).astype(np.float32)
+    return pts, cols
 
 
 def bench_params(dev, *, f_rest_std: float = 0.0, seed: int = 0) -> dict:
@@ -94,10 +109,9 @@ def bench_params(dev, *, f_rest_std: float = 0.0, seed: int = 0) -> dict:
     kNN log-scales, identity rotations, opacity logit 0.5 (bench.py:54),
     SH degree 3; f_rest ~ N(0, f_rest_std) from torch.Generator(seed)."""
     from d3gs_tpu_torch.models.gaussians import round_capacity
+    from d3gs_tpu_torch.ops.knn import knn_log_scales
     from d3gs_tpu_torch.ops.sh import rgb2sh
-    rng = np.random.default_rng(0)
-    pts = (rng.random((N_BENCH, 3)) * 2.6 - 1.3).astype(np.float32)
-    cols = rng.uniform(0, 1, (N_BENCH, 3)).astype(np.float32)
+    pts, cols = bench_points()
     cap = round_capacity(N_BENCH)
     n = N_BENCH
     scales = knn_log_scales(torch.from_numpy(pts).to(dev)).cpu().numpy()
@@ -161,6 +175,7 @@ def small_scenes(dev):
     duplicates) and 64 near-opaque Gaussians stacked in depth (also under
     the 48-duplicate budget of its overflow test)."""
     from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
+    from d3gs_tpu_torch.ops.knn import knn_log_scales
     from d3gs_tpu_torch.ops.sh import rgb2sh
     rng = np.random.default_rng(3)
     n, cap = 300, 512
@@ -197,28 +212,29 @@ def small_scenes(dev):
 # phases
 # --------------------------------------------------------------------------
 
-def profile_frames(frame, frames: int = 10, top: int = 12) -> dict:
-    """torch.profiler over `frames` frames: wall time, device kernel time and
-    the device's busy share per frame, and the kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-    frame()
+def profile(fn, calls: int = 10, top: int = 12) -> dict:
+    """torch.profiler over `calls` calls of fn: wall time, device kernel
+    time and the device's busy share per call, and the kernels by device
+    time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            frame()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    kernels = [(e.key, e.self_device_time_total / 1e3 / frames,
-                e.count / frames) for e in prof.key_averages()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [(e.key, e.self_device_time_total / 1e3 / calls,
+                e.count / calls) for e in prof.key_averages()
                if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
     kernels.sort(key=lambda k: -k[1])
     dev_ms = sum(k[1] for k in kernels)
-    return {"wall_ms_per_frame": wall_ms, "device_ms_per_frame": dev_ms,
+    return {"wall_ms_per_call": wall_ms, "device_ms_per_call": dev_ms,
             "device_busy_share": dev_ms / wall_ms,
-            "device_kernels_per_frame": sum(k[2] for k in kernels),
-            "top_kernels_ms_per_frame": [
+            "device_kernels_per_call": sum(k[2] for k in kernels),
+            "top_kernels_ms_per_call": [
                 [name[:60], round(ms, 4), round(c, 1)]
                 for name, ms, c in kernels[:top]]}
 
@@ -244,9 +260,53 @@ def compare_blend(name, records, bins, bg, grid) -> float:
             raise AssertionError(f"{name}: {field} differs beyond atol {ATOL} "
                                  f"/ rtol {RTOL} (max abs {float(err.max())})")
     same_walk = float((got.n_walked == ref.n_walked).float().mean())
+    same_last = float((got.last_contrib == ref.last_contrib).float().mean())
     log(f"[3] {name}: M={int(bins.starts[-1])} max|kernel-plain| "
         + ", ".join(msgs) + f" (tol {ATOL} + {RTOL}|ref|); "
-        f"records walked equal at {100 * same_walk:.3f}% of pixels")
+        f"records walked equal at {100 * same_walk:.3f}%, last included "
+        f"record equal at {100 * same_last:.3f}% of pixels")
+    # the two sum log T in different orders, so a pixel whose T lands on
+    # the 1e-4 threshold within rounding may end one record apart
+    if same_last < 1.0 - LAST_MISMATCH_SHARE:
+        raise AssertionError(f"{name}: last included record differs at "
+                             f"{100 * (1 - same_last):.4f}% of pixels")
+    return worst
+
+
+def blend_loss_grads(out):
+    """Upstream gradients of a loss that touches image, depth and alpha
+    (tests/test_pallas_blend.py:81-86): sum (image - 0.5)² + 0.01 sum depth
+    + 0.02 sum alpha."""
+    return (2.0 * (out.image - 0.5), torch.full_like(out.depth, 0.01),
+            torch.full_like(out.alpha, 0.02))
+
+
+def compare_blend_bwd(name, records, bins, bg, grid, tol) -> float:
+    """Backward kernel vs plain version on the same inputs (the kernel's
+    forward output and the same upstream gradients), with and without the
+    depth term; raises unless finite and within `tol` of the largest
+    plain gradient. Returns the largest absolute difference."""
+    from d3gs_tpu_torch.ops import blend as B
+    fwd = B.blend_forward_cuda(records, bins, bg, **grid)
+    g_img, g_dep, g_alp = blend_loss_grads(fwd)
+    worst, msgs = 0.0, []
+    for depth_grad in (True, False):
+        args = (records, bins, bg, fwd, g_img, g_dep, g_alp)
+        got = B.blend_backward_cuda(*args, **grid, depth_grad=depth_grad)
+        ref = B.blend_backward_torch(*args, **grid, depth_grad=depth_grad)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite gradient from the "
+                                 "backward kernel")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        worst = max(worst, err)
+        msgs.append(f"depth_grad={depth_grad}: max {err:.3e} = "
+                    f"{err / scale:.2e} of max {scale:.3e}")
+        if not err <= tol * scale:
+            raise AssertionError(f"{name}: backward differs by {err} > "
+                                 f"{tol} x {scale} (depth_grad={depth_grad})")
+    log(f"[3b] {name}: " + "; ".join(msgs) + f" (tol {tol} of max)")
     return worst
 
 
@@ -284,116 +344,159 @@ def write_dnerf_dataset(root: str, n_train=4, n_test=2, size=WIDTH):
                       f)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
-              "test needs an NVIDIA card", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    log(f"[1] nvidia-smi: {smi}")
-    log(f"[1] torch {torch.__version__} CUDA {torch.version.cuda}, "
-        f"device 0: {kind}, {torch.cuda.device_count()} visible")
+def roofline(bytes_moved, evals, flops_per_eval, sfu_per_eval):
+    """-> (least ms, what bounds it) for `bytes_moved` and `evals`
+    pixel-record evaluations on the H100's published peaks."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(evals * flops_per_eval / F32_FLOPS,
+                evals * sfu_per_eval / SFU_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
-    import d3gs_tpu_torch  # noqa: F401  (sets the TF32 flags)
+
+def render_main_path(dev, data, mp) -> dict:
+    """Phase 4: a model directory at the bench scale, rendered through
+    `d3gs_tpu_torch.render.main([... "--benchmark"])`; the forward's launch
+    count is read around that call and test render 0 is held against the
+    plain blend."""
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch import render as R
-    from d3gs_tpu_torch.data.scene import save_gaussians_ply
-    from d3gs_tpu_torch.models.deform.fields import (DeformFieldSpec,
-                                                     create_deform_field,
-                                                     save_deform_weights)
+    from d3gs_tpu_torch.data.image_io import read_png
+    from d3gs_tpu_torch.data.scene import Scene, save_gaussians_ply
+    from d3gs_tpu_torch.models.deform.fields import (
+        DeformFieldSpec, create_deform_field, load_deform_weights,
+        save_deform_weights)
     from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
-    from d3gs_tpu_torch.ops import _build
     from d3gs_tpu_torch.ops import blend as B
-
-    # ---- 2. build -------------------------------------------------------
+    params4, alive4 = bench_params(dev, f_rest_std=0.05, seed=1)
+    os.makedirs(os.path.join(mp, "point_cloud", "iteration_1"))
+    save_gaussians_ply(
+        os.path.join(mp, "point_cloud", "iteration_1", "point_cloud.ply"),
+        gaussians_from_numpy(params4, alive4, 3, 3, "cpu"))
+    save_deform_weights(mp, 1, create_deform_field(
+        DeformFieldSpec(kind="baseline", is_blender=True), seed=1,
+        device="cpu"))
+    C.save_cfg_args(mp, C.ModelParams(source_path=data, model_path=mp,
+                                      eval=True, is_blender=True,
+                                      sh_degree=3, D=8, W=256))
+    B.launches = 0
     t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"[2] built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.strip().splitlines():
-            log(f"[2] {name}: {line}")
-
-    # ---- 3. kernel vs plain ----------------------------------------------
-    params, alive = bench_params(dev)
-    state = gaussians_from_numpy(params, alive, 3, 3, dev)
-    cam = look_from_z(4.0, WIDTH, dev)
-    field = create_deform_field(DeformFieldSpec(kind="baseline",
-                                                is_blender=True), device=dev)
+    result = R.main(["-m", mp, "--mode", "render", "--benchmark"])
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches}
+    log(f"[4] render.main: {result} in {time.perf_counter() - t0:.1f} s; "
+        f"kernel launches {launches}")
+    frames = result["views"] + result["benchmark"]["frames"]
+    if launches["blend_fwd"] < frames:
+        raise AssertionError(f"blend_fwd launched {launches['blend_fwd']}"
+                             f" times for {frames} frames")
+    cov = []
+    for split, n in (("train", 4), ("test", 2)):
+        for i in range(n):
+            img = read_png(os.path.join(mp, split, "ours_1", "renders",
+                                        f"{i:05d}.png"))
+            assert img.shape == (HEIGHT, WIDTH, 3), img.shape
+            cov.append(float((img.max(axis=-1) > 0).mean()))
+    if min(cov) <= 0.05:
+        raise AssertionError(f"renders cover too little: {cov}")
+    # the CLI's test render 0 against the plain blend of the same view
+    cfg = C.ModelParams(**C.load_cfg_args(mp))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
+    fld = load_deform_weights(mp, create_deform_field(
+        R.pick_field_spec(cfg), device=dev))
+    view = scene.get_test_cameras()[0]
     bg = torch.zeros(3, device=dev)
-    records, bins, grid = stages(state, cam, field, bg)
-    bench_err = compare_blend(f"bench scene {N_BENCH} @ {WIDTH}x{HEIGHT}", records, bins,
-                              bg, grid)
-    for name, st, z, dup, bgs in small_scenes(dev):
-        compare_blend(name, *stages(st, look_from_z(z, 64, dev), None, bgs,
-                                    dup)[:2], bgs,
-                      dict(tiles_x=4, tiles_y=4, width=64, height=64))
+    rec_v, bins_v, grid_v = stages(scene.gaussians, view, fld, bg)
+    plain = B.blend_forward_torch(rec_v, bins_v, bg, **grid_v)
+    assert torch.isfinite(plain.image).all()
+    want = (255 * plain.image.clamp(0, 1)).to(torch.uint8).cpu().numpy()
+    got = read_png(os.path.join(mp, "test", "ours_1", "renders",
+                                "00000.png"))
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    log(f"[4] coverage of the 6 renders {[round(c, 3) for c in cov]}; "
+        f"test render 0 vs the plain blend: max {diff} of 255")
+    if diff > 1:
+        raise AssertionError("CLI render disagrees with the plain blend")
+    return result
 
-    # ---- 4. main path ---------------------------------------------------
-    with tempfile.TemporaryDirectory(prefix="d3gs_smoke_") as tmp:
-        data, mp = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-        write_dnerf_dataset(data)
-        params4, alive4 = bench_params(dev, f_rest_std=0.05, seed=1)
-        os.makedirs(os.path.join(mp, "point_cloud", "iteration_1"))
-        save_gaussians_ply(
-            os.path.join(mp, "point_cloud", "iteration_1", "point_cloud.ply"),
-            gaussians_from_numpy(params4, alive4, 3, 3, "cpu"))
-        save_deform_weights(mp, 1, create_deform_field(
-            DeformFieldSpec(kind="baseline", is_blender=True), seed=1,
-            device="cpu"))
-        C.save_cfg_args(mp, C.ModelParams(source_path=data, model_path=mp,
-                                          eval=True, is_blender=True,
-                                          sh_degree=3, D=8, W=256))
-        B.launches = 0
-        t0 = time.perf_counter()
-        result = R.main(["-m", mp, "--mode", "render", "--benchmark"])
-        torch.cuda.synchronize()
-        launches = {"blend_fwd": B.launches}
-        log(f"[4] render.main: {result} in {time.perf_counter() - t0:.1f} s; "
-            f"kernel launches {launches}")
-        frames = result["views"] + result["benchmark"]["frames"]
-        if launches["blend_fwd"] < frames:
-            raise AssertionError(f"blend_fwd launched {launches['blend_fwd']}"
-                                 f" times for {frames} frames")
 
-        from d3gs_tpu_torch.data.image_io import read_png
-        from d3gs_tpu_torch.data.scene import Scene
-        from d3gs_tpu_torch.models.deform.fields import load_deform_weights
-        cov = []
-        for split, n in (("train", 4), ("test", 2)):
-            for i in range(n):
-                img = read_png(os.path.join(mp, split, "ours_1", "renders",
-                                            f"{i:05d}.png"))
-                assert img.shape == (HEIGHT, WIDTH, 3), img.shape
-                cov.append(float((img.max(axis=-1) > 0).mean()))
-        if min(cov) <= 0.05:
-            raise AssertionError(f"renders cover too little: {cov}")
-        # the CLI's test render 0 against the plain blend of the same view
-        cfg = C.ModelParams(**C.load_cfg_args(mp))
-        scene = Scene(cfg, shuffle=False, device=dev)
-        fld = load_deform_weights(mp, create_deform_field(
-            R.pick_field_spec(cfg), device=dev))
-        view = scene.get_test_cameras()[0]
-        rec_v, bins_v, grid_v = stages(scene.gaussians, view, fld, bg)
-        plain = B.blend_forward_torch(rec_v, bins_v, bg, **grid_v)
-        assert torch.isfinite(plain.image).all()
-        want = (255 * plain.image.clamp(0, 1)).to(torch.uint8).cpu().numpy()
-        got = read_png(os.path.join(mp, "test", "ours_1", "renders",
-                                    "00000.png"))
-        diff = int(np.abs(got.astype(int) - want.astype(int)).max())
-        log(f"[4] coverage of the 6 renders {[round(c, 3) for c in cov]}; "
-            f"test render 0 vs the plain blend: max {diff} of 255")
-        if diff > 1:
-            raise AssertionError("CLI render disagrees with the plain blend")
+def train_main_path(dev, data, mp) -> dict:
+    """Phase 4b: `python -m d3gs_tpu_torch.train` in-process at the bench
+    width (bench.py's 43,132 points as the dataset's point cloud, 400x400,
+    SH 3, the 8x256 Blender MLP), with flags that reach every branch of
+    the loop in a few seconds: warm-up then deform steps, two densify
+    passes, a PSNR evaluation and a checkpoint. The kernels' launch counts
+    are read around that call. Then the checkpoint is rendered through
+    `render.main`."""
+    from d3gs_tpu_torch.data.image_io import read_png
+    from d3gs_tpu_torch.data.ply import write_pointcloud_ply
+    from d3gs_tpu_torch import render as R
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    pts, cols = bench_points()
+    write_pointcloud_ply(os.path.join(data, "points3d.ply"), pts,
+                         np.round(cols * 255))
+    n_eval = 2
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    result = train_main([
+        "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
+        "--iterations", str(TRAIN_ITERATIONS), "--warm_up", "6",
+        "--sh_degree", "3", "--densify_from_iter", "8",
+        "--densify_until_iter", "18", "--densification_interval", "4",
+        "--test_iterations", str(TRAIN_ITERATIONS),
+        "--save_iterations", str(TRAIN_ITERATIONS),
+        "--sequence_length", "4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    log(f"[4b] train.main: {TRAIN_ITERATIONS} iterations in {wall:.1f} s; "
+        f"kernel launches {launches}; losses {result.losses}; PSNR "
+        f"{result.test_psnrs}; densify (iteration, alive, capacity before, "
+        f"alive, capacity after) {result.densify_events}; best PSNR "
+        f"{result.best_psnr} at {result.best_iteration}")
+    if launches["blend_bwd"] < TRAIN_ITERATIONS:
+        raise AssertionError(f"blend_bwd launched {launches['blend_bwd']} "
+                             f"times for {TRAIN_ITERATIONS} train steps")
+    if launches["blend_fwd"] < TRAIN_ITERATIONS + n_eval:
+        raise AssertionError(f"blend_fwd launched {launches['blend_fwd']} "
+                             f"times for {TRAIN_ITERATIONS} steps and "
+                             f"{n_eval} evaluation renders")
+    values = [v for _, v in result.losses] + list(result.test_psnrs.values())
+    if not (values and all(math.isfinite(v) for v in values)
+            and TRAIN_ITERATIONS in result.test_psnrs):
+        raise AssertionError(f"loss or PSNR not finite: {result.losses}, "
+                             f"{result.test_psnrs}")
+    if not result.densify_events:
+        raise AssertionError("densification never ran")
+    if result.state.num_alive == 0:
+        raise AssertionError("every Gaussian was pruned")
 
-    # ---- 5. timings at the bench shape ------------------------------------
+    t0 = time.perf_counter()
+    out = R.main(["-m", mp, "--mode", "render"])
+    torch.cuda.synchronize()
+    it = TRAIN_ITERATIONS
+    imgs = [read_png(os.path.join(mp, split, f"ours_{it}", "renders",
+                                  f"{i:05d}.png"))
+            for split, n in (("train", 4), ("test", 2)) for i in range(n)]
+    if out != {"iteration": it, "views": 6} or any(
+            im.shape != (HEIGHT, WIDTH, 3) for im in imgs):
+        raise AssertionError(f"render of the trained model: {out}")
+    log(f"[4b] render.main of the checkpoint: {out} in "
+        f"{time.perf_counter() - t0:.1f} s; mean pixel of the renders "
+        f"{[round(float(im.mean()), 1) for im in imgs]}")
+    return launches
+
+
+def render_timings(state, field, cam, bg, records, bins, grid):
+    """Phase 5, render side: the stages of one frame at the bench shape
+    (CUDA events) and a torch.profiler pass over frames."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.ops.binning import bin_splats_records
     from d3gs_tpu_torch.ops.projection import project_gaussians
     from d3gs_tpu_torch.ops.sh import eval_sh_upto
     from d3gs_tpu_torch.render_eval.render_modes import make_render_fn
-    m = int(bins.starts[-1])
     st = state
     with torch.no_grad():
         dx, dr, ds = field.step(st.params.xyz, 0.5)
@@ -425,30 +528,224 @@ def main() -> int:
                 records, bins, bg, **grid), 5, warmup=1),
             "frame_ms": cuda_ms(lambda: render_at(st, field, cam, bg), 20),
         }
-        evals = int(out.n_walked.long().sum())
-        prof = profile_frames(lambda: render_at(st, field, cam, bg))
+        prof = profile(lambda: render_at(st, field, cam, bg))
     t["fps"] = 1000.0 / t["frame_ms"]
-    t.update(M=m, pixel_record_evals=evals, gaussians=N_BENCH,
-             size=f"{WIDTH}x{HEIGHT}", card=smi,
-             cli_benchmark_fps=result["benchmark"]["fps"])
+    evals = int(out.n_walked.long().sum())
+    evals_bwd = int(out.last_contrib.long().sum())
+    t.update(M=int(bins.starts[-1]), pixel_record_evals=evals,
+             bwd_pixel_record_evals=evals_bwd, gaussians=N_BENCH,
+             size=f"{WIDTH}x{HEIGHT}")
+    return t, prof, evals, evals_bwd
+
+
+def train_timings(dev, state, cam, bg, records, bins, grid):
+    """Phase 5, train side, at the bench shape with every SH band active
+    (bench.py:50-54): one deform-phase train step, its layers one by one,
+    the backward kernel alone, through its wrapper and in its plain
+    version (CUDA events), and a torch.profiler pass over train steps."""
+    import dataclasses
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.models import gaussians as G
+    from d3gs_tpu_torch.models.deform.fields import (DeformFieldSpec,
+                                                     create_deform_field)
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops.losses import l1_loss, ssim
+    from d3gs_tpu_torch.ops.rasterize import pack_records
+    from d3gs_tpu_torch.ops.projection import project_gaussians
+    from d3gs_tpu_torch.ops.sh import eval_sh_upto
+    from d3gs_tpu_torch.train.step import densify_fns, make_train_step
+    opt, pipe = C.OptimizationParams(), C.PipelineParams()
+    field = create_deform_field(DeformFieldSpec(kind="baseline",
+                                                is_blender=True), seed=2,
+                                device=dev, opt_cfg=opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gt = torch.rand((HEIGHT, WIDTH, 3), device=dev, generator=gen)
+    cam = dataclasses.replace(cam, image=gt)
+    dstate = field.init_state()
+    step = make_train_step(
+        opt_cfg=opt, pipe_cfg=pipe,
+        deform_fn=lambda xyz, fid, it, g: field.apply(xyz, fid),
+        deform_params=list(field.net.parameters()),
+        deform_update_fn=field.update)
+    train_step = lambda: step(state, dstate, cam, 5000, None, bg)  # noqa: E731
+
+    # the layers of the step, each forward + backward where it has one
+    xyz = state.params.xyz
+    cot = [torch.randn((xyz.shape[0], k), device=dev, generator=gen)
+           for k in (3, 4, 3)]
+
+    def mlp_fwd_bwd():
+        outs = field.apply(xyz, 0.5)
+        return torch.autograd.grad(outs, list(field.net.parameters()), cot)
+
+    g_rec = torch.randn_like(records)
+
+    def sh_proj_fwd_bwd():
+        p = G.GaussianParams(*(x.detach().requires_grad_()
+                               for x in state.params))
+        st = dataclasses.replace(state, params=p)
+        dirs = p.xyz - cam.campos
+        dirs = dirs / dirs.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        c = (eval_sh_upto(3, 3, st.get_features, dirs) + 0.5).clamp_min(0)
+        splats = project_gaussians(
+            p.xyz, st.get_scaling, st.get_rotation, st.get_opacity[:, 0], c,
+            cam.viewmatrix, cam.projmatrix, cam.tanfovx, cam.tanfovy, WIDTH,
+            HEIGHT, alive=st.alive)
+        return torch.autograd.grad(pack_records(splats), p, g_rec,
+                                   allow_unused=True)
+
+    img = torch.rand((HEIGHT, WIDTH, 3), device=dev, generator=gen,
+                     requires_grad=True)
+
+    def losses_fwd_bwd():
+        loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - ssim(img, gt))
+        return torch.autograd.grad(loss, img)
+
+    grads = G.GaussianParams(*(1e-3 * torch.randn_like(p)
+                               for p in state.params))
+    d_grads = [1e-3 * torch.randn_like(p) for p in field.net.parameters()]
+    lrs = G.group_learning_rates(opt, 5000, 1.0)
+
+    def adams():
+        G.adam_step(state.params, grads, state.opt, lrs, mask=state.alive)
+        field.update(dstate, d_grads, 5000)
+
+    densify, _, _ = densify_fns(opt)
+    dense_state = dataclasses.replace(
+        state, grad_accum=torch.rand(state.capacity, device=dev,
+                                     generator=gen) * 2e-3,
+        denom=torch.ones(state.capacity, device=dev))
+    cpu_gen = torch.Generator().manual_seed(0)
+
+    fwd = B.blend_forward_cuda(records, bins, bg, **grid)
+    g_img, g_dep, g_alp = blend_loss_grads(fwd)
+    bwd_args = (records, bins, bg, fwd, g_img, g_dep, g_alp)
+    grad_buf = torch.zeros((records.shape[0], 16), device=dev)
+    t = {
+        "train_step_ms": cuda_ms(train_step, 10),
+        "deform_mlp_fwd_bwd_ms": cuda_ms(mlp_fwd_bwd, 10),
+        "sh_projection_fwd_bwd_ms": cuda_ms(sh_proj_fwd_bwd, 10),
+        "losses_fwd_bwd_ms": cuda_ms(losses_fwd_bwd, 10),
+        "adams_ms": cuda_ms(adams, 10),
+        "densify_ms": cuda_ms(lambda: densify(dense_state, cpu_gen, 20.0,
+                                              4.0), 5),
+        # the kernel alone, accumulating into one preallocated buffer
+        # zeroed once (the trainer's depth_grad=False)
+        "blend_bwd_kernel_ms": cuda_ms(lambda: B.launch_bwd(
+            *bwd_args, grad_buf, tiles_x=grid["tiles_x"],
+            tiles_y=grid["tiles_y"], depth_grad=False), 100),
+        "blend_bwd_kernel_depth_ms": cuda_ms(lambda: B.launch_bwd(
+            *bwd_args, grad_buf, tiles_x=grid["tiles_x"],
+            tiles_y=grid["tiles_y"], depth_grad=True), 100),
+        "blend_bwd_wrapper_ms": cuda_ms(lambda: B.blend_backward_cuda(
+            *bwd_args, **grid, depth_grad=False), 50),
+        "blend_bwd_plain_ms": cuda_ms(lambda: B.blend_backward_torch(
+            *bwd_args, **grid, depth_grad=False), 5, warmup=1),
+    }
+    t["train_mrays_per_s"] = WIDTH * HEIGHT / t["train_step_ms"] / 1e3
+    return t, profile(train_step, calls=5)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs an NVIDIA card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1] nvidia-smi: {smi}")
+    log(f"[1] torch {torch.__version__} CUDA {torch.version.cuda}, "
+        f"device 0: {kind}, {torch.cuda.device_count()} visible")
+
+    import d3gs_tpu_torch  # noqa: F401  (sets the TF32 flags)
+    log(f"[1] TF32: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 must stay off (SSIM, the deform MLP)")
+    from d3gs_tpu_torch.models.deform.fields import (DeformFieldSpec,
+                                                     create_deform_field)
+    from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
+    from d3gs_tpu_torch.ops import _build
+
+    # ---- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"[2] built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.strip().splitlines():
+            log(f"[2] {name}: {line}")
+
+    # ---- 3. kernels vs plain --------------------------------------------
+    params, alive = bench_params(dev)
+    state = gaussians_from_numpy(params, alive, 3, 3, dev)
+    cam = look_from_z(4.0, WIDTH, dev)
+    field = create_deform_field(DeformFieldSpec(kind="baseline",
+                                                is_blender=True), device=dev)
+    bg = torch.zeros(3, device=dev)
+    records, bins, grid = stages(state, cam, field, bg)
+    bench = f"bench scene {N_BENCH} @ {WIDTH}x{HEIGHT}"
+    bench_err = compare_blend(bench, records, bins, bg, grid)
+    bench_bwd_err = compare_blend_bwd(bench, records, bins, bg, grid,
+                                      BWD_TOL["bench"])
+    small = dict(tiles_x=4, tiles_y=4, width=64, height=64)
+    for name, st, z, dup, bgs in small_scenes(dev):
+        rec_s, bins_s, _ = stages(st, look_from_z(z, 64, dev), None, bgs, dup)
+        compare_blend(name, rec_s, bins_s, bgs, small)
+        compare_blend_bwd(name, rec_s, bins_s, bgs, small, BWD_TOL[name])
+
+    with tempfile.TemporaryDirectory(prefix="d3gs_smoke_") as tmp:
+        # ---- 4. main path: render ---------------------------------------
+        data = os.path.join(tmp, "data")
+        write_dnerf_dataset(data, size=WIDTH)
+        render_result = render_main_path(dev, data, os.path.join(tmp,
+                                                                 "model"))
+        # ---- 4b. main path: train ---------------------------------------
+        launches = train_main_path(dev, data, os.path.join(tmp, "trained"))
+
+    # ---- 5. timings at the bench shape ------------------------------------
+    t, prof, evals, evals_bwd = render_timings(state, field, cam, bg,
+                                               records, bins, grid)
+    t["cli_benchmark_fps"] = render_result["benchmark"]["fps"]
+    t["card"] = smi
     log("[5] " + json.dumps(t))
     log("[5] profile of one frame: " + json.dumps(prof))
+    tt, tprof = train_timings(dev, state, cam, bg, records, bins, grid)
+    tt["card"] = smi
+    log("[5] train step: " + json.dumps(tt))
+    log("[5] profile of one train step: " + json.dumps(tprof))
 
-    n_rows = records.shape[0]
-    bytes_moved = (n_rows * (10 * 4 + 4) + m * 4 + (grid["tiles_x"]
-                   * grid["tiles_y"] + 1) * 4 + WIDTH * HEIGHT * 8 * 4)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(evals * BLEND_FLOPS_PER_EVAL / F32_FLOPS,
-                evals * BLEND_SFU_PER_EVAL / SFU_OPS_PER_S) * 1e3
+    n_rows, m = records.shape[0], int(bins.starts[-1])
+    index_bytes = n_rows * 4 + m * 4 + (grid["tiles_x"] * grid["tiles_y"]
+                                        + 1) * 4
+    # forward: 10 record fields in, 9 words per pixel out
+    fwd_bound, fwd_by = roofline(n_rows * 10 * 4 + index_bytes
+                                 + WIDTH * HEIGHT * 9 * 4,
+                                 evals, BLEND_FLOPS_PER_EVAL,
+                                 BLEND_SFU_PER_EVAL)
+    # backward: 10 record fields and 7 words per pixel in (log T, T_final,
+    # last_contrib, image 3, alpha; no depth), the (N, 16) gradient out
+    bwd_bound, bwd_by = roofline(n_rows * 10 * 4 + index_bytes
+                                 + WIDTH * HEIGHT * 7 * 4 + n_rows * 16 * 4,
+                                 evals_bwd, BLEND_BWD_FLOPS_PER_EVAL,
+                                 BLEND_BWD_SFU_PER_EVAL)
     kernels = [{
         "name": "blend_fwd", "route": "cuda",
         "source": "d3gs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "d3gs_tpu/ops/pallas_blend.py:188",
         "launches": launches["blend_fwd"], "max_abs_err": bench_err,
         "ms": t["blend_kernel_ms"], "plain_ms": t["blend_plain_ms"],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
+    }, {
+        "name": "blend_bwd", "route": "cuda",
+        "source": "d3gs_tpu_torch/csrc/blend_bwd.cu",
+        "replaces": "d3gs_tpu/ops/pallas_blend.py:277",
+        "launches": launches["blend_bwd"], "max_abs_err": bench_bwd_err,
+        "ms": tt["blend_bwd_kernel_ms"], "plain_ms": tt["blend_bwd_plain_ms"],
+        "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
     }]
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(smi)

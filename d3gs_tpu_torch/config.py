@@ -179,3 +179,18 @@ def get_combined_args(parser: argparse.ArgumentParser, argv=None):
         if getattr(args, k, None) in (None, "", False):
             setattr(args, k, v)
     return args
+
+
+def apply_config_file(path: str, groups: dict):
+    """Python config overlay replacing the reference's mmcv configs
+    (utils/params_utils.py:2-10): the file defines dicts named
+    ModelParams / PipelineParams / OptimizationParams, whose values
+    override the groups' fields."""
+    ns: dict = {}
+    with open(path) as f:
+        exec(compile(f.read(), path, "exec"), ns)
+    for obj in groups.values():
+        for k, v in ns.get(type(obj).__name__, {}).items():
+            if hasattr(obj, k):
+                setattr(obj, k, v)
+    return groups

@@ -18,8 +18,11 @@
 //     __syncthreads_count(done) == 256.
 //
 // Per pixel it writes the image composed with bg, the expected depth,
-// alpha = 1 - T_final, and, for the backward, T_final, log T_final and the
-// number of records walked (the failing record included).
+// alpha = 1 - T_final, T_final, log T_final, the number of records walked
+// (the failing record included) and, for the backward (csrc/blend_bwd.cu),
+// last_contrib: the index + 1 in the tile's list of the last record the
+// pixel included (0 if none). n_walked alone cannot tell whether the last
+// walked record was included (the list ran out after it) or failed.
 //
 // What bounds it on the H100: neither HBM nor f32 throughput at the bench
 // scene. Per pixel-record evaluation it does ~15 f32 operations and two to
@@ -55,7 +58,7 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
                  float* __restrict__ image, float* __restrict__ depth,
                  float* __restrict__ alpha_out, float* __restrict__ t_final,
                  float* __restrict__ log_t_final,
-                 int* __restrict__ n_walked) {
+                 int* __restrict__ n_walked, int* __restrict__ last_contrib) {
   __shared__ float2 s_mean[kBlock];
   __shared__ float4 s_conic_opa[kBlock];
   __shared__ float4 s_rgb_depth[kBlock];
@@ -73,6 +76,7 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
   float trans = 1.0f;   // exp(log_t)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   int walked = 0;
+  int last = 0;
   bool done = !inside;
 
   for (int base = s0; base < s1; base += kBlock) {
@@ -113,6 +117,7 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
       acc_d += w * cd.w;
       log_t = log_next;
       trans = t_next;
+      last = walked;
     }
   }
 
@@ -126,6 +131,7 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
   t_final[pix] = trans;
   log_t_final[pix] = log_t;
   n_walked[pix] = walked;
+  last_contrib[pix] = last;
 }
 
 }  // namespace
@@ -137,13 +143,15 @@ extern "C" int d3gs_blend_fwd(const float* records, int record_stride,
                               int tiles_x, int tiles_y, int width, int height,
                               float* image, float* depth, float* alpha,
                               float* t_final, float* log_t_final,
-                              int* n_walked, void* stream) {
+                              int* n_walked, int* last_contrib,
+                              void* stream) {
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles > 0) {
     blend_fwd_kernel<<<num_tiles, kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         records, record_stride, order, rank_sorted, starts, bg, tiles_x,
-        width, height, image, depth, alpha, t_final, log_t_final, n_walked);
+        width, height, image, depth, alpha, t_final, log_t_final, n_walked,
+        last_contrib);
   }
   return static_cast<int>(cudaGetLastError());
 }

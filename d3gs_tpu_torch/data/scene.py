@@ -1,9 +1,11 @@
-"""Scene: dataset sniffing, camera lists and checkpoint loading (counterpart
-of `d3gs_tpu/data/scene.py` for a trained model: a saved iteration is
-loaded). Initialising Gaussians from the point cloud needs the kNN scale
-init, which comes with training (ROADMAP.md, Queue 1, slice 2)."""
+"""Scene: dataset sniffing, camera lists, Gaussian init and checkpoints
+(counterpart of `d3gs_tpu/data/scene.py`). Without a saved iteration the
+Gaussians come from the reader's point cloud (`create_from_pcd`, kNN scale
+init), and the cameras go to `cameras.json`, as the JAX package writes it."""
 from __future__ import annotations
 
+import json
+import math
 import os
 import random
 
@@ -11,8 +13,9 @@ import numpy as np
 import torch
 
 from .. import config as cfg
-from ..models.gaussians import GaussianState, gaussians_from_numpy, round_capacity
-from .cameras import Camera, camera_from_info
+from ..models.gaussians import (GaussianState, create_from_pcd,
+                                gaussians_from_numpy, round_capacity)
+from .cameras import Camera, CameraInfo, camera_from_info
 from .dataset_readers import SceneData, read_nerf_synthetic
 from .ply import read_ply_columns, write_ply
 
@@ -44,23 +47,47 @@ def search_for_max_iteration(folder: str) -> int:
                if f.startswith("iteration_"))
 
 
-class Scene:
-    """Cameras + the Gaussians of a saved iteration, on `device`."""
+def camera_to_json(idx: int, info: CameraInfo) -> dict:
+    """Reference cameras.json entry (utils/camera_utils.py:69-88)."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = info.R.T
+    Rt[:3, 3] = info.T
+    Rt[3, 3] = 1.0
+    W2C = np.linalg.inv(Rt)
+    return {
+        "id": idx, "img_name": info.image_name,
+        "width": info.width, "height": info.height,
+        "position": W2C[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in W2C[:3, :3]],
+        "fy": info.height / (2 * math.tan(info.fovy / 2)),
+        "fx": info.width / (2 * math.tan(info.fovx / 2)),
+    }
 
-    def __init__(self, model: cfg.ModelParams, *, load_iteration=-1,
+
+class Scene:
+    """Cameras + Gaussians on `device`: those of a saved iteration
+    (`load_iteration` -1 for the latest), or with `load_iteration=None`
+    fresh ones from the point cloud."""
+
+    def __init__(self, model: cfg.ModelParams, *, load_iteration=None,
                  shuffle: bool = True, resolution_scales=(1.0,),
                  capacity: int = 0, seed: int = 0,
                  device: str | torch.device = "cuda"):
-        if load_iteration is None:
-            raise NotImplementedError(
-                "initialising Gaussians from the point cloud (kNN scale "
-                "init) comes with training (ROADMAP.md, Queue 1, slice 2)")
         self.model_path = model.model_path
-        self.loaded_iter = (search_for_max_iteration(
-            os.path.join(self.model_path, "point_cloud"))
-            if load_iteration == -1 else load_iteration)
+        self.loaded_iter = None
+        if load_iteration is not None:
+            self.loaded_iter = (search_for_max_iteration(
+                os.path.join(self.model_path, "point_cloud"))
+                if load_iteration == -1 else load_iteration)
         info = load_scene_data(model)
         self.scene_info = info
+
+        if not self.loaded_iter and self.model_path:
+            os.makedirs(self.model_path, exist_ok=True)
+            cams = list(info.test_cameras) + list(info.train_cameras)
+            with open(os.path.join(self.model_path, "cameras.json"), "w") as f:
+                json.dump([camera_to_json(i, c) for i, c in enumerate(cams)],
+                          f)
 
         train_infos = list(info.train_cameras)
         test_infos = list(info.test_cameras)
@@ -82,11 +109,24 @@ class Scene:
                                  resolution=model.resolution)
                 for c in test_infos]
 
-        self.gaussians = load_gaussians_ply(
-            os.path.join(self.model_path, "point_cloud",
-                         f"iteration_{self.loaded_iter}", "point_cloud.ply"),
-            sh_degree=model.sh_degree, max_gaussians=model.max_gaussians,
-            capacity=capacity, seed=seed, device=device)
+        if self.loaded_iter:
+            self.gaussians = load_gaussians_ply(
+                os.path.join(self.model_path, "point_cloud",
+                             f"iteration_{self.loaded_iter}",
+                             "point_cloud.ply"),
+                sh_degree=model.sh_degree,
+                spatial_lr_scale=self.cameras_extent,
+                max_gaussians=model.max_gaussians, capacity=capacity,
+                seed=seed, device=device)
+        else:
+            pcd = info.point_cloud
+            self.gaussians = create_from_pcd(
+                np.asarray(pcd.points, np.float32),
+                np.asarray(pcd.colors, np.float32),
+                sh_degree=model.sh_degree,
+                spatial_lr_scale=self.cameras_extent,
+                max_gaussians=model.max_gaussians, capacity=capacity,
+                seed=seed, device=device)
 
     def get_train_cameras(self, scale: float = 1.0):
         return self.train_cameras[scale]
@@ -115,6 +155,7 @@ def save_gaussians_ply(path: str, state: GaussianState) -> None:
 
 
 def load_gaussians_ply(path: str, *, sh_degree: int = 3,
+                       spatial_lr_scale: float = 1.0,
                        max_gaussians: int = 500_000, capacity: int = 0,
                        seed: int = 0,
                        device: str | torch.device = "cuda") -> GaussianState:
@@ -155,4 +196,5 @@ def load_gaussians_ply(path: str, *, sh_degree: int = 3,
               "rotation": rotation, "opacity": padded(col(["opacity"]))}
     return gaussians_from_numpy(params, np.arange(cap) < n,
                                 active_sh_degree=sh_degree,
-                                max_sh_degree=sh_degree, device=device)
+                                max_sh_degree=sh_degree, device=device,
+                                spatial_lr_scale=spatial_lr_scale)

@@ -1,5 +1,9 @@
-"""Deformation fields: spec, construction, step, checkpoints (counterpart of
-`d3gs_tpu/models/deform/fields.py`, render path only).
+"""Deformation fields: spec, construction, step, optimizer, checkpoints
+(counterpart of `d3gs_tpu/models/deform/fields.py`, MLP kinds).
+
+The network's parameters live in its `nn.Module`; `DeformState` holds the
+Adam moments beside them, and `DeformField.update` steps the parameters in
+place (torch-Adam semantics, eps 1e-15, weight decay added to the gradient).
 
 Checkpoints use the JAX package's npz layout — one array per flax leaf,
 keyed by `jax.tree_util.keystr` of its path, e.g.
@@ -15,6 +19,7 @@ import re
 import numpy as np
 import torch
 
+from ...ops.schedules import expon_lr
 from .networks import DeformMLP
 
 _FLAX_KEY = re.compile(
@@ -35,20 +40,74 @@ class DeformFieldSpec:
 
 
 @dataclasses.dataclass
+class DeformState:
+    """Adam moments of the field's parameters, in `net.parameters()` order."""
+    m: list
+    v: list
+    count: int = 0
+
+
+@dataclasses.dataclass
 class DeformField:
     spec: DeformFieldSpec
     net: DeformMLP
+    # learning-rate schedule (reference train_setting: position_lr_init x 5
+    # decaying to position_lr_final over deform_lr_max_steps)
+    lr_init: float = 1.6e-3
+    lr_final: float = 1.6e-6
+    lr_delay_mult: float = 0.01
+    max_steps: int = 40_000
+    weight_decay: float = 0.0
 
     @torch.no_grad()
     def step(self, xyz: torch.Tensor, t):
-        """Deformation at (scalar) time t -> (d_xyz, d_rot, d_scale); the
-        `warp` kind returns 0.0 for d_rot and d_scale."""
+        """Deformation at (scalar) time t -> (d_xyz, d_rot, d_scale), for
+        rendering (no autograd graph); the `warp` kind returns 0.0 for
+        d_rot and d_scale."""
         return self.net(xyz, t)
+
+    def apply(self, xyz: torch.Tensor, t):
+        """`step` under autograd, for training."""
+        return self.net(xyz, t)
+
+    def init_state(self) -> DeformState:
+        params = list(self.net.parameters())
+        return DeformState(m=[torch.zeros_like(p) for p in params],
+                           v=[torch.zeros_like(p) for p in params])
+
+    def lr_at(self, iteration) -> float:
+        return expon_lr(iteration, lr_init=self.lr_init,
+                        lr_final=self.lr_final,
+                        lr_delay_mult=self.lr_delay_mult,
+                        max_steps=self.max_steps)
+
+    @torch.no_grad()
+    def update(self, state: DeformState, grads, iteration) -> DeformState:
+        """One Adam step of the network's parameters, in place; returns the
+        new moments."""
+        lr = self.lr_at(iteration)
+        count = state.count + 1
+        c1 = 1.0 - 0.9 ** count
+        c2 = 1.0 - 0.999 ** count
+        new_m, new_v = [], []
+        for p, g, m, v in zip(self.net.parameters(), grads, state.m,
+                              state.v):
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + 1e-15))
+            new_m.append(m)
+            new_v.append(v)
+        return DeformState(m=new_m, v=new_v, count=count)
 
 
 def create_deform_field(spec: DeformFieldSpec, *, seed: int = 0,
-                        device: str | torch.device = "cuda") -> DeformField:
-    """A freshly initialized field (weights drawn from torch.Generator(seed))."""
+                        device: str | torch.device = "cuda", opt_cfg=None,
+                        spatial_lr_scale: float = 5.0) -> DeformField:
+    """A freshly initialized field (weights drawn from torch.Generator(seed)),
+    with the learning-rate schedule of `opt_cfg` (the defaults of the JAX
+    package without one)."""
     if spec.kind not in ("baseline", "warp"):
         raise NotImplementedError(
             f"deform kind {spec.kind!r} (neural ODE) is not ported yet "
@@ -61,7 +120,15 @@ def create_deform_field(spec: DeformFieldSpec, *, seed: int = 0,
     net = DeformMLP(D=spec.D, W=spec.W, multires=spec.multires,
                     is_blender=spec.is_blender, is_6dof=spec.is_6dof,
                     full_heads=spec.kind == "baseline", generator=gen)
-    return DeformField(spec=spec, net=net.to(device))
+    field = DeformField(spec=spec, net=net.to(device))
+    if opt_cfg is not None:
+        k = opt_cfg.num_cams_per_iter if opt_cfg.scale_lr else 1
+        field.lr_init = opt_cfg.position_lr_init * spatial_lr_scale * k
+        field.lr_final = opt_cfg.position_lr_final * k
+        field.lr_delay_mult = opt_cfg.position_lr_delay_mult
+        field.max_steps = opt_cfg.deform_lr_max_steps
+        field.weight_decay = opt_cfg.weight_decay
+    return field
 
 
 def params_from_flax(npz: dict, net: DeformMLP) -> dict[str, torch.Tensor]:

@@ -6,7 +6,11 @@ Compositions: additive (means = xyz + d_xyz, scales = exp(s)·mod + d_s,
 rotations = normalize(q) + d_r, normalized again inside the projection) and
 direct (`direct_compute`: d_xyz are absolute positions, the ODE path).
 SH→RGB happens here per view direction. Then projection, binning, record
-packing and the tile blend (the CUDA kernel on the card).
+packing and the tile blend (the CUDA kernels on the card). The whole path is
+differentiable except the binning, which runs without autograd on the
+detached splats (JAX's stop_gradient). `means2d_tap`, a zeros (C, 2) tensor
+added to the projected centres, receives dL/dmean2d in pixel units: the
+densification statistic (the reference's screenspace_points).
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ def render(
     bg: torch.Tensor | None = None,
     antialias: bool = False,
     dup_capacity: int = 0,
+    means2d_tap: Optional[torch.Tensor] = None,
+    depth_grad: bool = True,
 ) -> RenderOutput:
     if is_6dof:
         raise NotImplementedError(
@@ -77,10 +83,13 @@ def render(
         camera.viewmatrix, camera.projmatrix, camera.tanfovx,
         camera.tanfovy, width, height, antialias=antialias,
         alive=gaussians.alive)
-    bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y,
-                              dup_capacity=dup_capacity)
+    if means2d_tap is not None:
+        splats = splats._replace(means2d=splats.means2d + means2d_tap)
+    with torch.no_grad():
+        bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y,
+                                  dup_capacity=dup_capacity)
     image, depth, alpha = blend_records(
         pack_records(splats), bins, bg, tiles_x=tiles_x, tiles_y=tiles_y,
-        width=width, height=height)
+        width=width, height=height, depth_grad=depth_grad)
     return RenderOutput(image=image, depth=depth, alpha=alpha,
                         radii=splats.radii, counts=bins.counts)

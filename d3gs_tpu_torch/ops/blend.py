@@ -10,9 +10,25 @@ duplicates [starts[t], starts[t+1]) with Gaussian id order[rank_sorted[m]]:
     image   = Σ w_k rgb_k + T_final·bg,  depth = Σ w_k depth_k,
     alpha   = 1 - T_final   (T_final = T after the last included record)
 
-`blend_records` runs the hand-written kernel (`csrc/blend_fwd.cu`) for CUDA
-tensors and the plain PyTorch version, `blend_forward_torch`, for CPU
-tensors. It never falls back from one to the other.
+The backward (counterpart of `_bwd_kernel` and `_core_bwd`) walks each
+pixel's included records back to front from its last included one,
+anchored on the forward's log T_final:
+
+    L_k      = log T after k,  T_before_k = exp(L_k - log1p(-alpha_k))
+    w_k      = T_before_k·alpha_k,  gw_k = g_img·rgb_k (+ g_depth·depth_k)
+    S_k      = Σ_{included m > k} gw_m·w_m
+    g_tf     = Σ_c g_img_c·bg_c − g_alpha          (image = acc + T_final·bg)
+    g_alpha_k = gw_k·T_before_k − (S_k + g_tf·T_final)/(1 − alpha_k)
+    g_power_k = g_alpha_k·alpha_k, 0 where alpha was clamped or skipped
+
+and sums the per-pixel partials of mean2d, conic, rgb, opacity and depth
+into the (N, 16) gradient of the records in the original Gaussian order
+(channels 10-15 zero).
+
+`blend_records` (autograd through `BlendFunction`) runs the hand-written
+kernels (`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu`) for CUDA tensors and the
+plain PyTorch versions, `blend_forward_torch` and `blend_backward_torch`,
+for CPU tensors. It never falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -31,9 +47,11 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 
-# kernel launches of `blend_records` on CUDA tensors since import (or since
-# a caller last reset it); the plain version does not count
+# kernel launches on CUDA tensors since import (or since a caller last reset
+# them): `launches` counts the forward, `launches_bwd` the backward; the
+# plain versions do not count
 launches = 0
+launches_bwd = 0
 
 
 class BlendOutput(NamedTuple):
@@ -43,15 +61,53 @@ class BlendOutput(NamedTuple):
     t_final: torch.Tensor     # (H, W) T after the last included record
     log_t: torch.Tensor       # (H, W) log T_final, underflow-free
     n_walked: torch.Tensor    # (H, W) int32 records walked (the failing one
-    #                           included); the backward's replay length
+    #                           included)
+    last_contrib: torch.Tensor  # (H, W) int32 index + 1 (in the tile's list)
+    #                           of the last included record, 0 if none: where
+    #                           the backward starts
 
 
 def blend_records(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
-                  *, tiles_x: int, tiles_y: int, width: int, height: int):
-    """-> (image (H,W,3), depth (H,W), alpha (H,W))."""
-    out = blend_forward(records, bins, bg, tiles_x=tiles_x, tiles_y=tiles_y,
-                        width=width, height=height)
-    return out.image, out.depth, out.alpha
+                  *, tiles_x: int, tiles_y: int, width: int, height: int,
+                  depth_grad: bool = True):
+    """-> (image (H,W,3), depth (H,W), alpha (H,W)), differentiable in
+    `records` and `bg`. With depth_grad=False the backward treats the
+    depth cotangent as zero and skips its math (the photometric trainers'
+    setting, as in the JAX package)."""
+    return BlendFunction.apply(records, bg, bins, tiles_x, tiles_y, width,
+                               height, depth_grad)
+
+
+class BlendFunction(torch.autograd.Function):
+    """The tile blend under autograd: `blend_forward` forward,
+    `blend_backward` backward. Binning is not differentiable and its
+    output rides along as a constant."""
+
+    @staticmethod
+    def forward(ctx, records, bg, bins, tiles_x, tiles_y, width, height,
+                depth_grad):
+        grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width,
+                    height=height)
+        out = blend_forward(records, bins, bg, **grid)
+        ctx.save_for_backward(records, bg, out.t_final, out.log_t,
+                              out.last_contrib)
+        ctx.bins, ctx.grid, ctx.depth_grad = bins, grid, depth_grad
+        return out.image, out.depth, out.alpha
+
+    @staticmethod
+    def backward(ctx, g_image, g_depth, g_alpha):
+        # autograd hands zeros for an output the loss does not use, and may
+        # hand expanded (stride-0) gradients, hence .contiguous()
+        records, bg, t_final, log_t, last_contrib = ctx.saved_tensors
+        fwd = BlendOutput(image=None, depth=None, alpha=None,
+                          t_final=t_final, log_t=log_t, n_walked=None,
+                          last_contrib=last_contrib)
+        g_rec = blend_backward(
+            records, ctx.bins, bg, fwd, g_image.contiguous(),
+            g_depth.contiguous(), g_alpha.contiguous(),
+            depth_grad=ctx.depth_grad, **ctx.grid)
+        g_bg = (g_image * t_final[..., None]).sum(dim=(0, 1))
+        return g_rec, g_bg, None, None, None, None, None, None
 
 
 def blend_forward(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
@@ -95,6 +151,7 @@ def blend_forward_torch(records: torch.Tensor, bins: RecordBins,
     dep = records.new_zeros((num_tiles, P))
     log_t = records.new_zeros((num_tiles, P))
     walked = torch.zeros((num_tiles, P), dtype=torch.int32, device=dev)
+    last = torch.zeros((num_tiles, P), dtype=torch.int32, device=dev)
     for c0 in range(0, num_tiles, tile_chunk):
         tiles = torch.arange(c0, min(c0 + tile_chunk, num_tiles), device=dev)
         cnt = counts[tiles]
@@ -127,24 +184,143 @@ def blend_forward_torch(records: torch.Tensor, bins: RecordBins,
         first = fail.argmax(dim=1)
         walked[tiles] = torch.where(fail.amax(dim=1) > 0, first + 1,
                                     cnt[:, None]).int()
+        contrib = inc & (alpha > 0.0)
+        last[tiles] = torch.where(contrib, k[None, :, None] + 1,
+                                  0).amax(dim=1).int()
     t_final = torch.exp(log_t)
     img = img + t_final[..., None] * bg
     asm = lambda x: _assemble(x, tiles_x, tiles_y, width, height)  # noqa: E731
     return BlendOutput(image=asm(img), depth=asm(dep), alpha=asm(1.0 - t_final),
                        t_final=asm(t_final), log_t=asm(log_t),
-                       n_walked=asm(walked))
+                       n_walked=asm(walked), last_contrib=asm(last))
 
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]          # records, row stride
-             + [ctypes.c_void_p] * 4                  # order, rank, starts, bg
-             + [ctypes.c_int] * 4                     # tiles_x/y, width, height
-             + [ctypes.c_void_p] * 6                  # outputs
-             + [ctypes.c_void_p])                     # stream
+def _tiles(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """(H, W[, C]) image -> (T, P[, C]) per-tile pixels, zero past the
+    image edge (inverse of `_assemble`)."""
+    h, w = x.shape[:2]
+    c = x.shape[2:]
+    pad = x.new_zeros((tiles_y * TILE, tiles_x * TILE, *c))
+    pad[:h, :w] = x
+    pad = pad.reshape(tiles_y, TILE, tiles_x, TILE, *c).transpose(1, 2)
+    return pad.reshape(tiles_x * tiles_y, P, *c)
 
 
-def _kernel():
-    fn = _build.load("blend_fwd").d3gs_blend_fwd
-    fn.argtypes = _ARGTYPES
+def blend_backward(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
+                   fwd: BlendOutput, g_image: torch.Tensor,
+                   g_depth: torch.Tensor, g_alpha: torch.Tensor, *,
+                   tiles_x: int, tiles_y: int, width: int, height: int,
+                   depth_grad: bool = True) -> torch.Tensor:
+    """Gradient of the (N, 16) records: the CUDA kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    args = (records, bins, bg, fwd, g_image, g_depth, g_alpha)
+    grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width,
+                height=height, depth_grad=depth_grad)
+    if records.is_cuda:
+        return blend_backward_cuda(*args, **grid)
+    if records.device.type == "cpu":
+        return blend_backward_torch(*args, **grid)
+    raise ValueError(f"blend: unsupported device {records.device}")
+
+
+def blend_backward_torch(records: torch.Tensor, bins: RecordBins,
+                         bg: torch.Tensor, fwd: BlendOutput,
+                         g_image: torch.Tensor, g_depth: torch.Tensor,
+                         g_alpha: torch.Tensor, *, tiles_x: int,
+                         tiles_y: int, width: int, height: int,
+                         depth_grad: bool = True,
+                         tile_chunk: int = 16) -> torch.Tensor:
+    """Plain PyTorch version of the backward: chunks of tiles padded to
+    their longest list; the included set is every record before the
+    pixel's `last_contrib` with a nonzero alpha; the suffix sums are one
+    reversed cumsum; the per-record sums go to the Gaussians by
+    `index_add_`."""
+    dev = records.device
+    num_tiles = tiles_x * tiles_y
+    starts = bins.starts.long()
+    counts = starts[1:] - starts[:-1]
+    gid = bins.order.long()[bins.rank_sorted.long()]
+    rec = records[:, :RECORD_FIELDS]
+    pix = torch.arange(P, device=dev)
+    lx, ly = (pix % TILE).float(), (pix // TILE).float()
+
+    tl = lambda x: _tiles(x, tiles_x, tiles_y)  # noqa: E731
+    g_img = tl(g_image)                                        # (T, P, 3)
+    g_dep = tl(g_depth) if depth_grad else None
+    t_fin = tl(fwd.t_final)
+    g_tf = (g_img * bg).sum(-1) - tl(g_alpha)
+    gtt = g_tf * t_fin                                         # (T, P)
+    last = tl(fwd.last_contrib).long()
+
+    grad = records.new_zeros((records.shape[0], RECORD_WIDTH))
+    for c0 in range(0, num_tiles, tile_chunk):
+        tiles = torch.arange(c0, min(c0 + tile_chunk, num_tiles), device=dev)
+        cnt = counts[tiles]
+        k_max = int(cnt.max())
+        if k_max == 0:
+            continue
+        k = torch.arange(k_max, device=dev)
+        live = k[None, :] < cnt[:, None]                       # (Tc, K)
+        idx = torch.where(live, starts[tiles][:, None] + k[None, :], 0)
+        g_ids = gid[idx]
+        r = rec[g_ids]                                         # (Tc, K, 10)
+        ox = ((tiles % tiles_x) * TILE).float()[:, None, None]
+        oy = ((tiles // tiles_x) * TILE).float()[:, None, None]
+        dx = r[..., 0:1] - (ox + lx)                           # (Tc, K, P)
+        dy = r[..., 1:2] - (oy + ly)
+        ca, cb, cc = r[..., 2:3], r[..., 3:4], r[..., 4:5]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        raw = r[..., 8:9] * torch.exp(power)
+        inc = ((power <= 0.0) & (raw >= ALPHA_MIN) & live[..., None]
+               & (k[None, :, None] < last[tiles][:, None, :]))
+        alpha = torch.where(inc, raw.clamp_max(ALPHA_MAX), 0.0)
+        lo = torch.log1p(-alpha)
+        t_before = torch.exp(torch.cumsum(lo, dim=1) - lo)
+        w = t_before * alpha
+        gi = g_img[tiles]                                      # (Tc, P, 3)
+        gw = torch.einsum("tpc,tkc->tkp", gi, r[..., 5:8])
+        if depth_grad:
+            gw = gw + g_dep[tiles][:, None, :] * r[..., 9:10]
+        gww = gw * w
+        suffix = torch.flip(torch.cumsum(torch.flip(gww, [1]), 1), [1]) - gww
+        g_al = gw * t_before - (suffix + gtt[tiles][:, None, :]) / (1 - alpha)
+        g_pow = torch.where(inc & (raw <= ALPHA_MAX), g_al * alpha, 0.0)
+        opa = r[..., 8]
+        parts = [
+            -((ca * dx + cb * dy) * g_pow).sum(-1),
+            -((cc * dy + cb * dx) * g_pow).sum(-1),
+            (-0.5 * dx * dx * g_pow).sum(-1),
+            (-dx * dy * g_pow).sum(-1),
+            (-0.5 * dy * dy * g_pow).sum(-1),
+            *torch.einsum("tkp,tpc->ctk", w, gi),
+            torch.where(opa.abs() > 1e-12, g_pow.sum(-1) / opa, 0.0),
+            (torch.einsum("tkp,tp->tk", w, g_dep[tiles]) if depth_grad
+             else torch.zeros_like(opa)),
+        ]
+        part = torch.stack(parts, dim=-1) * live[..., None]    # (Tc, K, 10)
+        grad[:, :RECORD_FIELDS].index_add_(0, g_ids.reshape(-1),
+                                           part.reshape(-1, RECORD_FIELDS))
+    return grad
+
+
+_FWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
+                 + [ctypes.c_void_p] * 4              # order, rank, starts, bg
+                 + [ctypes.c_int] * 4                 # tiles_x/y, width, height
+                 + [ctypes.c_void_p] * 7              # outputs
+                 + [ctypes.c_void_p])                 # stream
+_BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
+                 + [ctypes.c_void_p] * 4              # order, rank, starts, bg
+                 + [ctypes.c_int] * 4                 # tiles_x/y, width, height
+                 + [ctypes.c_void_p] * 3              # log_t, t_final, last
+                 + [ctypes.c_void_p] * 3              # g_image, g_depth, g_alpha
+                 + [ctypes.c_int]                     # depth_grad
+                 + [ctypes.c_void_p, ctypes.c_int]    # grad, row stride
+                 + [ctypes.c_void_p])                 # stream
+
+
+def _kernel(name: str, argtypes):
+    fn = getattr(_build.load(name), "d3gs_" + name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -158,31 +334,36 @@ def _check(name, t, dtype, shape, device):
                          f"expected {shape}")
 
 
-def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
-                       bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
-                       width: int, height: int) -> BlendOutput:
-    """Launch `csrc/blend_fwd.cu` on the current stream; raises if the
-    kernel cannot be built or launched."""
-    global launches
+def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height):
     dev = records.device
     n = records.shape[0]
-    num_tiles = tiles_x * tiles_y
     if not (0 < width <= tiles_x * TILE and 0 < height <= tiles_y * TILE):
         raise ValueError("blend: image size does not match the tile grid")
     _check("records", records, torch.float32, (n, RECORD_WIDTH), dev)
     _check("order", bins.order, torch.int32, (n,), dev)
     _check("rank_sorted", bins.rank_sorted, torch.int32,
            (bins.rank_sorted.shape[0],), dev)
-    _check("starts", bins.starts, torch.int32, (num_tiles + 1,), dev)
+    _check("starts", bins.starts, torch.int32, (tiles_x * tiles_y + 1,), dev)
     _check("bg", bg, torch.float32, (3,), dev)
 
+
+def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
+                       bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
+                       width: int, height: int) -> BlendOutput:
+    """Launch `csrc/blend_fwd.cu` on the current stream; raises if the
+    kernel cannot be built or launched."""
+    global launches
+    _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height)
+    dev = records.device
     image = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     depth, alpha, t_final, log_t = (
         torch.empty((height, width), dtype=torch.float32, device=dev)
         for _ in range(4))
-    walked = torch.empty((height, width), dtype=torch.int32, device=dev)
+    walked, last = (torch.empty((height, width), dtype=torch.int32,
+                                device=dev) for _ in range(2))
     out = BlendOutput(image=image, depth=depth, alpha=alpha,
-                      t_final=t_final, log_t=log_t, n_walked=walked)
+                      t_final=t_final, log_t=log_t, n_walked=walked,
+                      last_contrib=last)
     launch(records, bins, bg, out, tiles_x=tiles_x, tiles_y=tiles_y)
     launches += 1
     return out
@@ -190,17 +371,65 @@ def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
 
 def launch(records, bins, bg, out: BlendOutput, *, tiles_x: int,
            tiles_y: int) -> None:
-    """One launch of the kernel into preallocated outputs, without the
-    checks of `blend_forward_cuda` (which calls it) and uncounted."""
+    """One launch of the forward kernel into preallocated outputs, without
+    the checks of `blend_forward_cuda` (which calls it) and uncounted."""
     height, width = out.depth.shape
     dev = records.device
     with torch.cuda.device(dev):
-        err = _kernel()(
+        err = _kernel("blend_fwd", _FWD_ARGTYPES)(
             records.data_ptr(), records.stride(0), bins.order.data_ptr(),
             bins.rank_sorted.data_ptr(), bins.starts.data_ptr(),
             bg.data_ptr(), tiles_x, tiles_y, width, height,
             out.image.data_ptr(), out.depth.data_ptr(), out.alpha.data_ptr(),
             out.t_final.data_ptr(), out.log_t.data_ptr(),
-            out.n_walked.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out.n_walked.data_ptr(), out.last_contrib.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
+
+
+def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
+                        bg: torch.Tensor, fwd: BlendOutput,
+                        g_image: torch.Tensor, g_depth: torch.Tensor,
+                        g_alpha: torch.Tensor, *, tiles_x: int, tiles_y: int,
+                        width: int, height: int,
+                        depth_grad: bool = True) -> torch.Tensor:
+    """Launch `csrc/blend_bwd.cu` on the current stream into a zeroed
+    (N, 16) gradient; raises if the kernel cannot be built or launched."""
+    global launches_bwd
+    _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height)
+    dev = records.device
+    for name, t in (("t_final", fwd.t_final), ("log_t", fwd.log_t),
+                    ("g_depth", g_depth), ("g_alpha", g_alpha)):
+        _check(name, t, torch.float32, (height, width), dev)
+    _check("last_contrib", fwd.last_contrib, torch.int32, (height, width),
+           dev)
+    _check("g_image", g_image, torch.float32, (height, width, 3), dev)
+    grad = torch.zeros((records.shape[0], RECORD_WIDTH), dtype=torch.float32,
+                       device=dev)
+    launch_bwd(records, bins, bg, fwd, g_image, g_depth, g_alpha, grad,
+               tiles_x=tiles_x, tiles_y=tiles_y, depth_grad=depth_grad)
+    launches_bwd += 1
+    return grad
+
+
+def launch_bwd(records, bins, bg, fwd: BlendOutput, g_image, g_depth,
+               g_alpha, grad, *, tiles_x: int, tiles_y: int,
+               depth_grad: bool) -> None:
+    """One launch of the backward kernel, accumulating into `grad` (which
+    the caller zeroes), without the checks of `blend_backward_cuda` (which
+    calls it) and uncounted."""
+    height, width = fwd.log_t.shape
+    dev = records.device
+    with torch.cuda.device(dev):
+        err = _kernel("blend_bwd", _BWD_ARGTYPES)(
+            records.data_ptr(), records.stride(0), bins.order.data_ptr(),
+            bins.rank_sorted.data_ptr(), bins.starts.data_ptr(),
+            bg.data_ptr(), tiles_x, tiles_y, width, height,
+            fwd.log_t.data_ptr(), fwd.t_final.data_ptr(),
+            fwd.last_contrib.data_ptr(), g_image.data_ptr(),
+            g_depth.data_ptr(), g_alpha.data_ptr(), int(depth_grad),
+            grad.data_ptr(), grad.stride(0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")

@@ -1,11 +1,13 @@
 """The port's math ops against the JAX package on the same numpy inputs:
-SH evaluation, quaternion → rotation, EWA projection and record packing.
+SH evaluation, quaternion → rotation, EWA projection and record packing,
+their gradients against jax.vjp, and the `--configs` overlay.
 
 Tolerances: f32 elementwise chains at rtol 1e-5 / atol 1e-5 (the two
 frameworks round transcendental and fused operations differently by an ulp
-or two). Integer tile bounds come from ceil/floor of those floats, so a row
-may land one tile over where a value sits on a boundary: equal in ≥ 99.9%
-of rows and off by at most 1 elsewhere."""
+or two); gradients within 1e-5 of their largest entry. Integer tile bounds
+come from ceil/floor of those floats, so a row may land one tile over where
+a value sits on a boundary: equal in ≥ 99.9% of rows and off by at most 1
+elsewhere."""
 import math
 
 import jax.numpy as jnp
@@ -114,3 +116,70 @@ def test_inverse_sigmoid_and_sh_dc():
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(tSH.sh2rgb(tSH.rgb2sh(x)), x, atol=1e-6)
     assert tSH.rgb2sh(0.75) == pytest.approx(float(SH.rgb2sh(0.75)))
+
+
+def _vjp_compare(jax_fn, torch_fn, inputs, cot, tol=1e-5):
+    """Gradients of <fn(inputs), cot> in both packages, each input's within
+    `tol` of its largest entry."""
+    import jax
+    out, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in inputs))
+    ref = vjp(jnp.asarray(cot))
+    ts = [T(x).requires_grad_() for x in inputs]
+    got = torch.autograd.grad(torch_fn(*ts), ts, T(cot))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        b = np.asarray(b)
+        scale = np.abs(b).max()
+        assert scale > 0 and np.isfinite(a.numpy()).all(), i
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=tol,
+                                   err_msg=f"input {i}")
+
+
+@pytest.mark.parametrize("seed,size", [(4, 64), (5, 120)])
+def test_project_gaussians_gradients(seed, size):
+    """d(packed records) / d(means, scales, quats, opacity, colors), the
+    projection's part of the train step's backward, against jax.vjp."""
+    means, scales, quats, opac, colors, alive = _scene(seed, n=1500)
+    V, VP = camera_mats(4.0)
+    tan = math.tan(math.radians(60) / 2)
+
+    def jax_fn(m, s, q, o, c):
+        return pack_records(PJ.project_gaussians(
+            m, None, o, c, jnp.asarray(V), jnp.asarray(VP), tan, tan, size,
+            size, alive=jnp.asarray(alive), scales=s, rotations=q))
+
+    def torch_fn(m, s, q, o, c):
+        return tpack(tPJ.project_gaussians(m, s, q, o, c, T(V), T(VP), tan,
+                                           tan, size, size, alive=T(alive)))
+    cot = np.random.default_rng(seed).normal(size=(1500, 16)).astype(
+        np.float32)
+    cot[:, 10:] = 0
+    _vjp_compare(jax_fn, torch_fn, (means, scales, quats, opac, colors), cot)
+
+
+def test_eval_sh_gradients():
+    rng = np.random.default_rng(9)
+    dirs = _dirs(rng, 300)
+    sh = rng.normal(size=(300, 16, 3)).astype(np.float32)
+    cot = rng.normal(size=(300, 3)).astype(np.float32)
+    _vjp_compare(lambda s, d: SH.eval_sh_upto(3, jnp.asarray(2), s, d),
+                 lambda s, d: tSH.eval_sh_upto(3, 2, s, d), (sh, dirs), cot)
+
+
+def test_config_overlay_matches_jax():
+    """`--configs` presets land on the same fields in both packages."""
+    import dataclasses
+    import os
+    from d3gs_tpu import config as JC
+    from d3gs_tpu_torch import config as TC
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs")
+    for preset in ("baseline.py", "ode_batch10.py"):
+        j = {"model": JC.ModelParams(), "optimization":
+             JC.OptimizationParams()}
+        t = {"model": TC.ModelParams(), "optimization":
+             TC.OptimizationParams()}
+        JC.apply_config_file(os.path.join(root, preset), j)
+        TC.apply_config_file(os.path.join(root, preset), t)
+        for k in j:
+            assert dataclasses.asdict(t[k]) == dataclasses.asdict(j[k])
+    assert t["model"].is_ode and t["optimization"].num_cams_per_iter == 60

@@ -88,7 +88,7 @@ def test_render_path_matches_jax(model_dir, jax_renders):
                                                      tload)
     from d3gs_tpu_torch.render_eval import render_modes as RM
     cfg = TC.ModelParams(**TC.load_cfg_args(model_dir))
-    scene = Scene(cfg, shuffle=False, device="cpu")
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device="cpu")
     field = tload(model_dir, tcreate(trender.pick_field_spec(cfg),
                                      device="cpu"))
     render_at = RM.make_render_fn(scene.gaussians, field, TC.PipelineParams())
