@@ -21,9 +21,13 @@ Phases (any failure exits non-zero):
      around its call;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, each kernel
-     alone, through its wrapper and in its plain version;
+     alone, through its wrapper and in its plain version; the backward
+     kernel again on the train step's own scene, with that scene's pair
+     counts and screen-space gradients;
   6. the card, one JSON line of the kernels (launches from the training
-     main path), and the final status line.
+     main path; bounds from the pixel-record pairs each kernel evaluates
+     on the bench scene, counted by `blend_work`), and the final status
+     line.
 It imports nothing of JAX or of the JAX package `d3gs_tpu`.
 """
 from __future__ import annotations
@@ -53,13 +57,18 @@ F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 # guide, arithmetic instruction throughput, compute capability 9.0), 132 SMs
 # at the 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
-BLEND_FLOPS_PER_EVAL = 15        # alpha quadratic, clamps, T update, accum
-BLEND_SFU_PER_EVAL = 2           # exp(power) and log1p/exp of the T update
-# backward, per pixel-record evaluation (csrc/blend_bwd.cu): ~12 for the
-# alpha, ~10 for T_before/w/g_alpha and the suffix, ~18 for the ten
-# partials; exp(power), log1p, exp(T_before)
-BLEND_BWD_FLOPS_PER_EVAL = 40
-BLEND_BWD_SFU_PER_EVAL = 3
+# Work per pixel-record pair, counted from the kernels' source. Every pair a
+# kernel reaches evaluates the Gaussian (dx, dy, the conic's quadratic, the
+# opacity product: 12 f32 operations) and one exp. Only a pair whose alpha
+# reaches 1/255 (an included one) goes on:
+#   csrc/blend_fwd.cu: clamp, log T update, w, 4 accumulations: 11 ops,
+#     log1p and exp;
+#   csrc/blend_bwd.cu (depth_grad=False): clamp, T_before, w, g·rgb,
+#     g_alpha, suffix, log T, g_power, the 9 partials and their 9-way sum
+#     over pixels: 46 ops, log1p and exp.
+PAIR_FLOPS, PAIR_SFU = 12, 1
+FWD_INC_FLOPS, FWD_INC_SFU = 11, 2
+BWD_INC_FLOPS, BWD_INC_SFU = 46, 2
 TRAIN_ITERATIONS = 20            # the training main path's steps
 
 
@@ -142,6 +151,7 @@ def look_from_z(z: float, size: int, dev, fid: float = 0.5):
                                 device=dev)
 
 
+@torch.no_grad()
 def stages(state, cam, field, bg, dup=0):
     """The render path of models/renderer.py, stage by stage:
     -> (records, bins, grid kwargs)."""
@@ -344,14 +354,59 @@ def write_dnerf_dataset(root: str, n_train=4, n_test=2, size=WIDTH):
                       f)
 
 
-def roofline(bytes_moved, evals, flops_per_eval, sfu_per_eval):
-    """-> (least ms, what bounds it) for `bytes_moved` and `evals`
-    pixel-record evaluations on the H100's published peaks."""
+def roofline(bytes_moved, flops, sfu):
+    """-> (least ms, what bounds it) for `bytes_moved`, `flops` f32
+    operations and `sfu` transcendentals on the H100's published peaks."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(evals * flops_per_eval / F32_FLOPS,
-                evals * sfu_per_eval / SFU_OPS_PER_S) * 1e3
+    t_ops = max(flops / F32_FLOPS, sfu / SFU_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+@torch.no_grad()
+def blend_work(records, bins, fwd, *, tiles_x, tiles_y, width, height,
+               tile_chunk: int = 16) -> dict:
+    """Pixel-record pairs the blend kernels evaluate on these inputs:
+    `walked` = sum of n_walked (the forward), `range` = sum of last_contrib
+    (the backward), of each the pairs whose alpha reaches 1/255
+    (`walked_inc`, `range_inc`), and the Gaussians with at least one such
+    pair in the backward's range (`gaussians_reached`), from the records
+    as the kernels read them."""
+    from d3gs_tpu_torch.ops import blend as B
+    starts = bins.starts.long()
+    counts = starts[1:] - starts[:-1]
+    gid = bins.order.long()[bins.rank_sorted.long()]
+    pix = torch.arange(B.P, device=records.device)
+    lx, ly = (pix % B.TILE).float(), (pix // B.TILE).float()
+    walked = B._tiles(fwd.n_walked, tiles_x, tiles_y).long()
+    last = B._tiles(fwd.last_contrib, tiles_x, tiles_y).long()
+    walked_inc = range_inc = 0
+    reached = torch.zeros(records.shape[0], dtype=torch.bool,
+                          device=records.device)
+    for c0 in range(0, tiles_x * tiles_y, tile_chunk):
+        tiles = torch.arange(c0, min(c0 + tile_chunk, tiles_x * tiles_y),
+                             device=records.device)
+        cnt = counts[tiles]
+        k = torch.arange(int(cnt.max()), device=records.device)
+        idx = torch.where(k[None, :] < cnt[:, None],
+                          starts[tiles][:, None] + k[None, :], 0)
+        r = records[gid[idx]]                                  # (Tc, K, 16)
+        dx = r[..., 0:1] - (((tiles % tiles_x) * B.TILE).float()[:, None,
+                                                                 None] + lx)
+        dy = r[..., 1:2] - (((tiles // tiles_x) * B.TILE).float()[:, None,
+                                                                  None] + ly)
+        power = (-0.5 * (r[..., 2:3] * dx * dx + r[..., 4:5] * dy * dy)
+                 - r[..., 3:4] * dx * dy)
+        hit = (power <= 0.0) & (r[..., 8:9] * torch.exp(power)
+                                >= B.ALPHA_MIN)                # (Tc, K, P)
+        kk = k[None, :, None]
+        walked_inc += int((hit & (kk < walked[tiles][:, None, :])).sum())
+        used = hit & (kk < last[tiles][:, None, :])
+        range_inc += int(used.sum())
+        reached[gid[idx][used.any(dim=-1)]] = True
+    return {"walked": int(walked.sum()), "walked_inc": walked_inc,
+            "range": int(last.sum()), "range_inc": range_inc,
+            "gaussians_reached": int(reached.sum())}
 
 
 def render_main_path(dev, data, mp) -> dict:
@@ -425,7 +480,8 @@ def train_main_path(dev, data, mp) -> dict:
     width (bench.py's 43,132 points as the dataset's point cloud, 400x400,
     SH 3, the 8x256 Blender MLP), with flags that reach every branch of
     the loop in a few seconds: warm-up then deform steps, two densify
-    passes, a PSNR evaluation and a checkpoint. The kernels' launch counts
+    passes at a threshold low enough to clone and split, a PSNR evaluation
+    and a checkpoint. The kernels' launch counts
     are read around that call. Then the checkpoint is rendered through
     `render.main`."""
     from d3gs_tpu_torch.data.image_io import read_png
@@ -444,6 +500,10 @@ def train_main_path(dev, data, mp) -> dict:
         "--iterations", str(TRAIN_ITERATIONS), "--warm_up", "6",
         "--sh_degree", "3", "--densify_from_iter", "8",
         "--densify_until_iter", "18", "--densification_interval", "4",
+        # far below this scene's screen-space gradients (phase 5 prints
+        # them; the default 7e-4 and 2e-5 clone nothing in 12 steps here),
+        # so that the passes clone, split and grow the buffer
+        "--densify_grad_threshold", "1e-8",
         "--test_iterations", str(TRAIN_ITERATIONS),
         "--save_iterations", str(TRAIN_ITERATIONS),
         "--sequence_length", "4"])
@@ -467,8 +527,10 @@ def train_main_path(dev, data, mp) -> dict:
             and TRAIN_ITERATIONS in result.test_psnrs):
         raise AssertionError(f"loss or PSNR not finite: {result.losses}, "
                              f"{result.test_psnrs}")
-    if not result.densify_events:
-        raise AssertionError("densification never ran")
+    # the low threshold makes the passes clone and split
+    if not any(n1 != n0 for _, n0, _, n1, _ in result.densify_events):
+        raise AssertionError(f"densification changed no alive count: "
+                             f"{result.densify_events}")
     if result.state.num_alive == 0:
         raise AssertionError("every Gaussian was pruned")
 
@@ -530,12 +592,10 @@ def render_timings(state, field, cam, bg, records, bins, grid):
         }
         prof = profile(lambda: render_at(st, field, cam, bg))
     t["fps"] = 1000.0 / t["frame_ms"]
-    evals = int(out.n_walked.long().sum())
-    evals_bwd = int(out.last_contrib.long().sum())
-    t.update(M=int(bins.starts[-1]), pixel_record_evals=evals,
-             bwd_pixel_record_evals=evals_bwd, gaussians=N_BENCH,
-             size=f"{WIDTH}x{HEIGHT}")
-    return t, prof, evals, evals_bwd
+    work = blend_work(records, bins, out, **grid)
+    t.update(M=int(bins.starts[-1]), pixel_record_pairs=work,
+             gaussians=N_BENCH, size=f"{WIDTH}x{HEIGHT}")
+    return t, prof, work
 
 
 def train_timings(dev, state, cam, bg, records, bins, grid):
@@ -564,7 +624,7 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
     dstate = field.init_state()
     step = make_train_step(
         opt_cfg=opt, pipe_cfg=pipe,
-        deform_fn=lambda xyz, fid, it, g: field.apply(xyz, fid),
+        deform_fn=lambda xyz, fid, it, g: field.step(xyz, fid),
         deform_params=list(field.net.parameters()),
         deform_update_fn=field.update)
     train_step = lambda: step(state, dstate, cam, 5000, None, bg)  # noqa: E731
@@ -575,7 +635,7 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
            for k in (3, 4, 3)]
 
     def mlp_fwd_bwd():
-        outs = field.apply(xyz, 0.5)
+        outs = field.step(xyz, 0.5)
         return torch.autograd.grad(outs, list(field.net.parameters()), cot)
 
     g_rec = torch.randn_like(records)
@@ -643,6 +703,26 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
             *bwd_args, **grid, depth_grad=False), 5, warmup=1),
     }
     t["train_mrays_per_s"] = WIDTH * HEIGHT / t["train_step_ms"] / 1e3
+    # the scene the step renders (its own MLP weights, as the timed steps
+    # left them): the backward kernel's work there, and the kernel alone
+    rec_s, bins_s, _ = stages(state, cam, field, bg)
+    fwd_s = B.blend_forward_cuda(rec_s, bins_s, bg, **grid)
+    bwd_s = (rec_s, bins_s, bg, fwd_s, *blend_loss_grads(fwd_s))
+    buf_s = torch.zeros((rec_s.shape[0], 16), device=dev)
+    st1 = step(state, dstate, cam, 5000, None, bg)[0]
+    g1 = st1.grad_accum[st1.denom > 0]
+    t["step_scene"] = {
+        "M": int(bins_s.starts[-1]),
+        # one step's |dL/dmean2d| (pixels) over the visible Gaussians
+        "screen_grad_quantiles_10_50_90_max": [
+            float(q) for q in torch.quantile(
+                g1, torch.tensor([0.1, 0.5, 0.9, 1.0], device=dev))],
+        "visible": int(g1.numel()),
+        "nonzero_screen_grad": int((g1 > 0).sum()),
+        "pixel_record_pairs": blend_work(rec_s, bins_s, fwd_s, **grid),
+        "blend_bwd_kernel_ms": cuda_ms(lambda: B.launch_bwd(
+            *bwd_s, buf_s, tiles_x=grid["tiles_x"], tiles_y=grid["tiles_y"],
+            depth_grad=False), 100)}
     return t, profile(train_step, calls=5)
 
 
@@ -707,8 +787,8 @@ def main() -> int:
         launches = train_main_path(dev, data, os.path.join(tmp, "trained"))
 
     # ---- 5. timings at the bench shape ------------------------------------
-    t, prof, evals, evals_bwd = render_timings(state, field, cam, bg,
-                                               records, bins, grid)
+    t, prof, work = render_timings(state, field, cam, bg, records, bins,
+                                   grid)
     t["cli_benchmark_fps"] = render_result["benchmark"]["fps"]
     t["card"] = smi
     log("[5] " + json.dumps(t))
@@ -722,16 +802,19 @@ def main() -> int:
     index_bytes = n_rows * 4 + m * 4 + (grid["tiles_x"] * grid["tiles_y"]
                                         + 1) * 4
     # forward: 10 record fields in, 9 words per pixel out
-    fwd_bound, fwd_by = roofline(n_rows * 10 * 4 + index_bytes
-                                 + WIDTH * HEIGHT * 9 * 4,
-                                 evals, BLEND_FLOPS_PER_EVAL,
-                                 BLEND_SFU_PER_EVAL)
+    fwd_bound, fwd_by = roofline(
+        n_rows * 10 * 4 + index_bytes + WIDTH * HEIGHT * 9 * 4,
+        work["walked"] * PAIR_FLOPS + work["walked_inc"] * FWD_INC_FLOPS,
+        work["walked"] * PAIR_SFU + work["walked_inc"] * FWD_INC_SFU)
     # backward: 10 record fields and 7 words per pixel in (log T, T_final,
     # last_contrib, image 3, alpha; no depth), the (N, 16) gradient out
-    bwd_bound, bwd_by = roofline(n_rows * 10 * 4 + index_bytes
-                                 + WIDTH * HEIGHT * 7 * 4 + n_rows * 16 * 4,
-                                 evals_bwd, BLEND_BWD_FLOPS_PER_EVAL,
-                                 BLEND_BWD_SFU_PER_EVAL)
+    bwd_bound, bwd_by = roofline(
+        n_rows * 10 * 4 + index_bytes + WIDTH * HEIGHT * 7 * 4
+        + n_rows * 16 * 4,
+        work["range"] * PAIR_FLOPS + work["range_inc"] * BWD_INC_FLOPS,
+        work["range"] * PAIR_SFU + work["range_inc"] * BWD_INC_SFU)
+    log(f"[6] bounds: blend_fwd {fwd_bound:.5f} ms ({fwd_by}), blend_bwd "
+        f"{bwd_bound:.5f} ms ({bwd_by}) from the pairs {work}")
     kernels = [{
         "name": "blend_fwd", "route": "cuda",
         "source": "d3gs_tpu_torch/csrc/blend_fwd.cu",

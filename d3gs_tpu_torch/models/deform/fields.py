@@ -22,6 +22,8 @@ import torch
 from ...ops.schedules import expon_lr
 from .networks import DeformMLP
 
+_DEFORM_LR_SCALE = 5.0   # reference deform.py: position_lr_init x 5
+
 _FLAX_KEY = re.compile(
     r"\['params'\]\['TorchLinear_(\d+)'\]\['Dense_0'\]\['(kernel|bias)'\]")
 
@@ -59,15 +61,10 @@ class DeformField:
     max_steps: int = 40_000
     weight_decay: float = 0.0
 
-    @torch.no_grad()
     def step(self, xyz: torch.Tensor, t):
-        """Deformation at (scalar) time t -> (d_xyz, d_rot, d_scale), for
-        rendering (no autograd graph); the `warp` kind returns 0.0 for
-        d_rot and d_scale."""
-        return self.net(xyz, t)
-
-    def apply(self, xyz: torch.Tensor, t):
-        """`step` under autograd, for training."""
+        """Deformation at (scalar) time t -> (d_xyz, d_rot, d_scale); the
+        `warp` kind returns 0.0 for d_rot and d_scale. Differentiable: the
+        render paths call it under `torch.no_grad()`."""
         return self.net(xyz, t)
 
     def init_state(self) -> DeformState:
@@ -103,8 +100,8 @@ class DeformField:
 
 
 def create_deform_field(spec: DeformFieldSpec, *, seed: int = 0,
-                        device: str | torch.device = "cuda", opt_cfg=None,
-                        spatial_lr_scale: float = 5.0) -> DeformField:
+                        device: str | torch.device = "cuda",
+                        opt_cfg=None) -> DeformField:
     """A freshly initialized field (weights drawn from torch.Generator(seed)),
     with the learning-rate schedule of `opt_cfg` (the defaults of the JAX
     package without one)."""
@@ -123,7 +120,7 @@ def create_deform_field(spec: DeformFieldSpec, *, seed: int = 0,
     field = DeformField(spec=spec, net=net.to(device))
     if opt_cfg is not None:
         k = opt_cfg.num_cams_per_iter if opt_cfg.scale_lr else 1
-        field.lr_init = opt_cfg.position_lr_init * spatial_lr_scale * k
+        field.lr_init = opt_cfg.position_lr_init * _DEFORM_LR_SCALE * k
         field.lr_final = opt_cfg.position_lr_final * k
         field.lr_delay_mult = opt_cfg.position_lr_delay_mult
         field.max_steps = opt_cfg.deform_lr_max_steps

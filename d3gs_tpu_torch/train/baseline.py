@@ -103,7 +103,7 @@ def train_baseline(
                 * time_interval * linear_noise(
                     iteration, lr_init=0.1, lr_final=1e-15,
                     lr_delay_mult=0.01, max_steps=20000)
-        return field.apply(xyz, t)
+        return field.step(xyz, t)
 
     warm_step = make_train_step(opt_cfg=opt_cfg, pipe_cfg=pipe_cfg)
     deform_step = make_train_step(

@@ -124,7 +124,7 @@ def test_one_deform_step_gradients_match_jax(scene):
     ts = to_torch(js)
     loss_and_grads = TS.make_loss_and_grads(
         opt_cfg=TC.OptimizationParams(), pipe_cfg=TC.PipelineParams(),
-        deform_fn=lambda xyz, fid, it, gen: tfield.apply(xyz, fid),
+        deform_fn=lambda xyz, fid, it, gen: tfield.step(xyz, fid),
         deform_params=list(tfield.net.parameters()))
     r = loss_and_grads(ts, to_torch_camera(cam, cam.fid), 4000, None,
                        torch.zeros(3))
@@ -154,7 +154,7 @@ def test_five_train_steps_match_jax(scene):
     twarm = TS.make_train_step(opt_cfg=topt, pipe_cfg=tpipe)
     tdef = TS.make_train_step(
         opt_cfg=topt, pipe_cfg=tpipe,
-        deform_fn=lambda xyz, fid, it, gen: tf.apply(xyz, fid),
+        deform_fn=lambda xyz, fid, it, gen: tf.step(xyz, fid),
         deform_params=list(tf.net.parameters()), deform_update_fn=tf.update)
 
     js, jd, ts, td = js0, dstate, to_torch(js0), tf.init_state()
