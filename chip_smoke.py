@@ -4,30 +4,43 @@
 
 Phases (any failure exits non-zero):
   1. device: card name and power limit, the TF32 flags (both must be off);
-  2. build: every CUDA kernel of the port, compiled from csrc/ with nvcc;
-  3. each kernel against its plain PyTorch version on the card: the bench
-     scene (bench.py's recipe: 43,132 Gaussians, 400x400, SH degree 3, the
-     8x256 Blender deform MLP at t=0.5) and the small blend scenes of
-     tests/test_pallas_blend.py; the forward at atol 5e-5 / rtol 1e-4, the
-     backward (with and without the depth term) relative to its largest
-     gradient at that file's tolerances;
-  4. the render main path: a D-NeRF-format dataset and a model directory at
-     the bench scale, written by the port's own writers, rendered through
-     `d3gs_tpu_torch.render.main([... "--mode", "render", "--benchmark"])`;
-  4b. the training main path: `d3gs_tpu_torch.train.__main__.main` on that
-     dataset with bench.py's point cloud, 20 iterations through warm-up,
-     deform steps, densification, a PSNR evaluation and a checkpoint, which
-     `render.main` then renders; each path's kernel launches are read
-     around its call;
+  2. build: every CUDA kernel of the port, compiled from csrc/ with nvcc,
+     one process per source, all started together;
+  3. each kernel against its plain PyTorch version on the card: the blend
+     kernels on the bench scene (bench.py's recipe: 43,132 Gaussians,
+     400x400, SH degree 3, the 8x256 Blender deform MLP at t=0.5) and the
+     small blend scenes of tests/test_pallas_blend.py, the forward at atol
+     5e-5 / rtol 1e-4, the backward (with and without the depth term)
+     relative to its largest gradient at that file's tolerances; (3c) the
+     row kernels at the shapes of the tools that run them, the copy and the
+     gather bit-equal, the scatter-add within 1e-5 of the largest |sum|;
+  4. the main paths, each with the kernels' counts set to 0 just before it
+     and read just after:
+     4.  render: a D-NeRF-format dataset and a model directory at the bench
+         scale, rendered through `d3gs_tpu_torch.render.main([... "--mode",
+         "render", "--benchmark"])`;
+     4b. train: `d3gs_tpu_torch.train.__main__.main` on that dataset with
+         bench.py's point cloud, 20 iterations through warm-up, deform
+         steps, densification, a PSNR evaluation and a checkpoint, which
+         `render.main` then renders;
+     4c. the three tools (`d3gs_tpu_torch.tools.exp_r5_reduce`,
+         `exp_vmem_gather`, `exp_vmem_scatter`) through their main();
+     4d. flagship: the train CLI with `--trainer flagship --is_ode` (the
+         8x256 ODE field, k = 10 cameras) on a 12-view set with bench.py's
+         point cloud, 10 iterations through warm-up, the alternating
+         switch, a densify pass, an evaluation and a checkpoint, rendered
+         through `render.main` and held against the plain blend;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, each kernel
-     alone, through its wrapper and in its plain version; the backward
-     kernel again on the train step's own scene, with that scene's pair
-     counts and screen-space gradients;
-  6. the card, one JSON line of the kernels (launches from the training
-     main path; bounds from the pixel-record pairs each kernel evaluates
-     on the bench scene, counted by `blend_work`), and the final status
-     line.
+     alone, through its wrapper and in its plain version, the backward
+     kernel again on the train step's own scene; the row kernels alone
+     beside their library calls and plain versions; one ODE flagship step
+     at k = 10 and its layers, one MLP-kind flagship step;
+  6. the card, one JSON line of the kernels (the blend kernels' launches
+     from the flagship path, the row kernels' from their tools' paths;
+     the blend bounds from the pixel-record pairs each kernel evaluates on
+     the bench scene, counted by `blend_work`, the row bounds from the
+     bytes each must move), and the final status line.
 It imports nothing of JAX or of the JAX package `d3gs_tpu`.
 """
 from __future__ import annotations
@@ -47,6 +60,7 @@ WIDTH = HEIGHT = 400
 N_BENCH = 43_132                 # bench.py: the reference's average count
 ATOL, RTOL = 5e-5, 1e-4          # tests/test_pallas_blend.py:72-73
 LAST_MISMATCH_SHARE = 1e-4       # pixels whose last included record may differ
+ROW_SCATTER_TOL = 1e-5           # scatter-add vs plain, of the largest |sum|
 # backward tolerance relative to the largest gradient
 # (tests/test_pallas_blend.py:90-92, 138-140)
 BWD_TOL = {"random": 2e-4, "random_budget512": 5e-4, "saturated": 5e-4,
@@ -70,6 +84,9 @@ PAIR_FLOPS, PAIR_SFU = 12, 1
 FWD_INC_FLOPS, FWD_INC_SFU = 11, 2
 BWD_INC_FLOPS, BWD_INC_SFU = 46, 2
 TRAIN_ITERATIONS = 20            # the training main path's steps
+FLAGSHIP_ITERATIONS = 10         # the flagship main path's steps
+FLAGSHIP_K = 10                  # cameras per flagship step
+FLAGSHIP_VIEWS = (12, 2)         # train / test views of its dataset
 
 
 def log(msg: str) -> None:
@@ -159,10 +176,12 @@ def stages(state, cam, field, bg, dup=0):
     from d3gs_tpu_torch.ops.projection import project_gaussians
     from d3gs_tpu_torch.ops.rasterize import pack_records
     from d3gs_tpu_torch.ops.sh import eval_sh_upto
+    from d3gs_tpu_torch.models.deform.fields import ODE_KINDS
     xyz, d_rot, d_sc = state.params.xyz, 0.0, 0.0
     if field is not None:
         dx, d_rot, d_sc = field.step(state.params.xyz, cam.fid)
-        xyz = xyz + dx
+        # the ODE kinds integrate to absolute positions (direct_compute)
+        xyz = dx if field.spec.kind in ODE_KINDS else xyz + dx
     dirs = xyz - cam.campos
     dirs = dirs / dirs.norm(dim=-1, keepdim=True).clamp_min(1e-8)
     colors = (eval_sh_upto(state.max_sh_degree, state.active_sh_degree,
@@ -423,6 +442,7 @@ def render_main_path(dev, data, mp) -> dict:
         save_deform_weights)
     from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
     from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
     params4, alive4 = bench_params(dev, f_rest_std=0.05, seed=1)
     os.makedirs(os.path.join(mp, "point_cloud", "iteration_1"))
     save_gaussians_ply(
@@ -439,6 +459,7 @@ def render_main_path(dev, data, mp) -> dict:
     result = R.main(["-m", mp, "--mode", "render", "--benchmark"])
     torch.cuda.synchronize()
     launches = {"blend_fwd": B.launches}
+    result["launches"] = launches
     log(f"[4] render.main: {result} in {time.perf_counter() - t0:.1f} s; "
         f"kernel launches {launches}")
     frames = result["views"] + result["benchmark"]["frames"]
@@ -458,7 +479,7 @@ def render_main_path(dev, data, mp) -> dict:
     cfg = C.ModelParams(**C.load_cfg_args(mp))
     scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
     fld = load_deform_weights(mp, create_deform_field(
-        R.pick_field_spec(cfg), device=dev))
+        pick_field_spec(cfg, C.OptimizationParams()), device=dev))
     view = scene.get_test_cameras()[0]
     bg = torch.zeros(3, device=dev)
     rec_v, bins_v, grid_v = stages(scene.gaussians, view, fld, bg)
@@ -547,6 +568,172 @@ def train_main_path(dev, data, mp) -> dict:
     log(f"[4b] render.main of the checkpoint: {out} in "
         f"{time.perf_counter() - t0:.1f} s; mean pixel of the renders "
         f"{[round(float(im.mean()), 1) for im in imgs]}")
+    return launches
+
+
+def row_inputs(dev) -> dict:
+    """The three tools' inputs on the card, drawn as the tools draw them
+    (numpy seed 0): the channel-major (3072, 16, 128) gradient rows of
+    exp_r5_reduce seen as the (3072, 128, 16) view that V2 copies, the
+    (44,032, 16) table and (512, 128) indices of exp_vmem_gather, the
+    (2752, 128, 16) rows and ranks below 44,032 of exp_vmem_scatter."""
+    from d3gs_tpu_torch.tools import exp_r5_reduce as TR
+    from d3gs_tpu_torch.tools import exp_vmem_gather as TG
+    from d3gs_tpu_torch.tools import exp_vmem_scatter as TS
+    g = TR.make_inputs(dev).g
+    rows, rank = TS.make_inputs(dev)
+    return {"row_copy": (g.transpose(1, 2),),
+            "row_gather": TG.make_inputs(dev),
+            "scatter_add_rows": (rows, rank, TS.N1)}
+
+
+def compare_rows(inp: dict) -> dict:
+    """Phase 3c: each row kernel against its plain version on the tools'
+    inputs; the copy and the gather must be bit-equal, the scatter-add
+    within ROW_SCATTER_TOL of the largest |sum| (atomics add in no fixed
+    order). Returns each kernel's largest absolute difference."""
+    from d3gs_tpu_torch.ops import rows as R
+    errs = {}
+    for name in ("row_copy", "row_gather", "scatter_add_rows"):
+        got = getattr(R, name + "_cuda")(*inp[name])
+        ref = getattr(R, name + "_torch")(*inp[name])
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all() or got.shape != ref.shape:
+            raise AssertionError(f"{name}: non-finite or misshapen output")
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        tol = ROW_SCATTER_TOL * scale if name == "scatter_add_rows" else 0.0
+        log(f"[3c] {name}: shape {tuple(got.shape)}, max|kernel-plain| "
+            f"{err:.3e} (tol {tol:.3e}, largest |plain| {scale:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version by {err} > {tol}")
+        errs[name] = err
+    return errs
+
+
+def tool_paths() -> dict:
+    """Phase 4c: the three tools through their main(), each with the row
+    kernels' counts set to 0 just before it and read just after; each must
+    launch its kernel and pass its own correctness check."""
+    from d3gs_tpu_torch.ops import rows as R
+    from d3gs_tpu_torch.tools import exp_r5_reduce, exp_vmem_gather, \
+        exp_vmem_scatter
+    launches = {}
+    for kernel, tool in (("row_copy", exp_r5_reduce),
+                         ("row_gather", exp_vmem_gather),
+                         ("scatter_add_rows", exp_vmem_scatter)):
+        for k in R.launches:
+            R.launches[k] = 0
+        t0 = time.perf_counter()
+        out = tool.main(["--reps", "10"])
+        torch.cuda.synchronize()
+        launches[kernel] = R.launches[kernel]
+        log(f"[4c] {tool.__name__}.main: {time.perf_counter() - t0:.1f} s, "
+            f"launches {dict(R.launches)}; {json.dumps(out)}")
+        if launches[kernel] == 0:
+            raise AssertionError(f"{tool.__name__} did not launch {kernel}")
+        if tool is exp_r5_reduce:
+            ok = all(out[k] <= 1e-4 * out["max_abs_v0"] for k in
+                     ("max_abs_v0_v1", "max_abs_v0_v2", "max_abs_v0_v3"))
+        elif tool is exp_vmem_gather:
+            ok = out["exact"]
+        else:
+            ok = out["max_abs_err"] <= ROW_SCATTER_TOL * out["max_abs_sum"]
+        if not ok:
+            raise AssertionError(f"{tool.__name__}: check failed: {out}")
+    return launches
+
+
+def flagship_main_path(dev, data, mp) -> dict:
+    """Phase 4d: `python -m d3gs_tpu_torch.train --trainer flagship` in
+    process at the bench width: bench.py's 43,132 points on a 12-view
+    D-NeRF set at 400x400, the 8x256 Blender ODE field (`--is_ode`, rk4 with
+    4 substeps per segment), 10 cameras per step; 10 iterations through the
+    warm-up, deform-only steps, a switch to Gaussian-only and back to both,
+    one densify pass, a PSNR evaluation and a checkpoint, which
+    `render.main` then renders. The blend kernels' counts are read around
+    the trainer; test render 0 of the checkpoint is held against the plain
+    blend of the same view."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch import render as R
+    from d3gs_tpu_torch.data.image_io import read_png
+    from d3gs_tpu_torch.data.ply import write_pointcloud_ply
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
+                                                     load_deform_weights)
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    pts, cols = bench_points()
+    write_pointcloud_ply(os.path.join(data, "points3d.ply"), pts,
+                         np.round(cols * 255))
+    it, k = FLAGSHIP_ITERATIONS, FLAGSHIP_K
+    n_train, n_test = FLAGSHIP_VIEWS
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    result = train_main([
+        "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
+        "--trainer", "flagship", "--is_ode", "--D", "8", "--W", "256",
+        "--num_cams_per_iter", str(k), "--iterations", str(it),
+        "--warm_up", "3", "--use_iterative_update",
+        "--iterative_update_interval", "5", "--max_training_switches", "1",
+        "--sh_degree", "3", "--densify_from_iter", "4",
+        "--densify_until_iter", "9", "--densification_interval", "4",
+        "--densify_grad_threshold", "1e-8",
+        "--test_iterations", str(it), "--save_iterations", str(it)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    log(f"[4d] train.main --trainer flagship: {it} iterations x {k} cameras "
+        f"in {wall:.1f} s; kernel launches {launches}; losses "
+        f"{result.losses}; PSNR {result.test_psnrs}; densify "
+        f"{result.densify_events}; deform updates "
+        f"{result.deform_state.count}")
+    if result.field.spec.kind != "ode" or result.field.spec.n_substeps != 4:
+        raise AssertionError(f"flagship field: {result.field.spec}")
+    if launches["blend_bwd"] < it * k:
+        raise AssertionError(f"blend_bwd launched {launches['blend_bwd']} "
+                             f"times for {it} steps of {k} cameras")
+    if launches["blend_fwd"] < it * k + n_test:
+        raise AssertionError(f"blend_fwd launched {launches['blend_fwd']} "
+                             f"times for {it} steps of {k} cameras and "
+                             f"{n_test} evaluation renders")
+    values = [v for _, v in result.losses] + list(result.test_psnrs.values())
+    if not (values and all(math.isfinite(v) for v in values)
+            and it in result.test_psnrs):
+        raise AssertionError(f"loss or PSNR not finite: {result.losses}, "
+                             f"{result.test_psnrs}")
+    # iterations 3..10 update the field except 5, the Gaussian-only one
+    if result.deform_state.count != it - 3:
+        raise AssertionError(f"{result.deform_state.count} deform updates")
+    if not any(n1 != n0 for _, n0, _, n1, _ in result.densify_events):
+        raise AssertionError(f"densification changed no alive count: "
+                             f"{result.densify_events}")
+
+    t0 = time.perf_counter()
+    out = R.main(["-m", mp, "--mode", "render"])
+    torch.cuda.synchronize()
+    if out != {"iteration": it, "views": n_train + n_test}:
+        raise AssertionError(f"render of the flagship checkpoint: {out}")
+    cfg = C.ModelParams(**C.load_cfg_args(mp))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
+    fld = load_deform_weights(mp, create_deform_field(
+        pick_field_spec(cfg, C.OptimizationParams()), device=dev))
+    view = scene.get_test_cameras()[0]
+    bg = torch.zeros(3, device=dev)
+    plain = B.blend_forward_torch(*stages(scene.gaussians, view, fld, bg)[:2],
+                                  bg, tiles_x=(WIDTH + 15) // 16,
+                                  tiles_y=(HEIGHT + 15) // 16, width=WIDTH,
+                                  height=HEIGHT)
+    want = (255 * plain.image.clamp(0, 1)).to(torch.uint8).cpu().numpy()
+    got = read_png(os.path.join(mp, "test", f"ours_{it}", "renders",
+                                "00000.png"))
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    log(f"[4d] render.main of the flagship checkpoint: {out} in "
+        f"{time.perf_counter() - t0:.1f} s; test render 0 vs the plain "
+        f"blend of the ODE field's positions: max {diff} of 255")
+    if diff > 1:
+        raise AssertionError("flagship render disagrees with the plain blend")
     return launches
 
 
@@ -726,6 +913,166 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
     return t, profile(train_step, calls=5)
 
 
+def row_timings(inp: dict) -> dict:
+    """Phase 5, the row kernels at the tools' shapes: each kernel alone
+    (launched into a preallocated output) and the library call that
+    computes the same function, by the device time torch.profiler reads
+    per call (`ms`, `library_ms`) and by CUDA events around back-to-back
+    calls (`event_ms`, `library_event_ms`: at ~20 us a call these are
+    bound by the host's launch rate, not the device), and the plain version
+    (CUDA events); with the bytes each must move (each input read once,
+    each output written once; the gather reads only the table rows its
+    indices name) and their bound."""
+    from d3gs_tpu_torch.ops import rows as R
+
+    def timed(kernel, library, plain, plain_reps=20):
+        return {"ms": profile(kernel, calls=50, top=2)["device_ms_per_call"],
+                "event_ms": cuda_ms(kernel, 200),
+                "library_ms": profile(library, calls=50,
+                                      top=2)["device_ms_per_call"],
+                "library_event_ms": cuda_ms(library, 200),
+                "plain_ms": cuda_ms(plain, plain_reps, warmup=1)}
+
+    (view,) = inp["row_copy"]
+    table, idx = inp["row_gather"]
+    rows, rank, n1 = inp["scatter_add_rows"]
+    rows, rank = rows.reshape(-1, 16), rank.reshape(-1)
+    flat_idx = idx.reshape(-1)
+    copy_out = torch.empty((view.shape[0] * view.shape[1], 16), device=view.device)
+    gather_out = torch.empty((idx.numel(), 16), device=view.device)
+    scatter_out = torch.zeros((n1, 16), device=view.device)
+    lib_out = torch.zeros((n1, 16), device=view.device)
+    t = {
+        "row_copy": {
+            **timed(lambda: R.launch_row_copy(view, copy_out),
+                    lambda: view.contiguous(),
+                    lambda: R.row_copy_torch(view)),
+            "bytes": 2 * view.numel() * 4},
+        "row_gather": {
+            **timed(lambda: R.launch_row_gather(table, idx, gather_out),
+                    lambda: torch.index_select(table, 0, flat_idx),
+                    lambda: R.row_gather_torch(table, idx)),
+            "bytes": (int(torch.unique(flat_idx).numel()) * 64
+                      + idx.numel() * 4 + idx.numel() * 64)},
+        "scatter_add_rows": {
+            **timed(lambda: R.launch_scatter_add_rows(rows, rank,
+                                                      scatter_out),
+                    lambda: lib_out.index_add_(0, rank, rows),
+                    lambda: R.scatter_add_rows_torch(rows, rank, n1),
+                    plain_reps=5),
+            "bytes": rows.numel() * 4 + rank.numel() * 4 + n1 * 16 * 4},
+    }
+    for name, r in t.items():
+        # the scatter's additions (16 per row) are far below the byte time
+        flops = rows.numel() if name == "scatter_add_rows" else 0
+        r["bound_ms"], r["bound_by"] = roofline(r["bytes"], flops, 0)
+    return t
+
+
+def flagship_timings(dev, state, bg) -> tuple[dict, dict]:
+    """Phase 5, flagship side, at the bench shape with every SH band
+    active: one ODE flagship step (the 8x256 Blender ODE field, rk4 with 4
+    substeps, k = 10 cameras with fids 0..1) and its layers (the ODE
+    integral forward, and forward + backward; the k renders forward +
+    backward; the k losses forward + backward; both Adams), one MLP-kind
+    flagship step at k = 10 (CUDA events), the peak device memory of the
+    ODE step, and torch.profiler over ODE steps and over the integral
+    alone (the ODE's share of device time)."""
+    import dataclasses
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.models import gaussians as G
+    from d3gs_tpu_torch.models.deform.fields import create_deform_field
+    from d3gs_tpu_torch.models.renderer import render
+    from d3gs_tpu_torch.ops.losses import l1_loss, ssim
+    from d3gs_tpu_torch.train.flagship import (make_batched_step,
+                                               pick_field_spec)
+    k = FLAGSHIP_K
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cams = [dataclasses.replace(
+        look_from_z(4.0, WIDTH, dev, fid=i / (k - 1)),
+        image=torch.rand((HEIGHT, WIDTH, 3), device=dev, generator=gen))
+        for i in range(k)]
+    fids = [c.fid for c in cams]
+    opt, pipe = C.OptimizationParams(num_cams_per_iter=k), C.PipelineParams()
+    out = {}
+    for kind in ("mlp", "ode"):
+        model = C.ModelParams(is_blender=True, is_ode=kind == "ode", D=8,
+                              W=256, sh_degree=3)
+        field = create_deform_field(pick_field_spec(model, opt), seed=4,
+                                    device=dev, opt_cfg=opt)
+        dstate = field.init_state()
+        step = make_batched_step(opt_cfg=opt, pipe_cfg=pipe,
+                                 model_cfg=model, field=field,
+                                 update_gaussians=True, update_deform=True,
+                                 use_deform=True)
+        run = lambda: step(state, dstate, cams, 5000, bg)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(run, 3, warmup=1)
+        out[f"{kind}_step_ms"] = ms
+        out[f"{kind}_step_ms_per_camera"] = ms / k
+        out[f"{kind}_peak_memory_gb"] = torch.cuda.max_memory_allocated(
+            dev) / 1e9
+    # the ODE step's layers (field, step, run: the ODE kind's, last above)
+    params = list(field.net.parameters())
+    xyz = state.params.xyz
+    cot = torch.randn((k, xyz.shape[0], 3), device=dev, generator=gen)
+
+    def ode_fwd():
+        with torch.no_grad():
+            return field.step_multi(xyz, fids, y0=xyz)
+
+    def ode_fwd_bwd():
+        ys = field.step_multi(xyz, fids, y0=xyz)[0]
+        return torch.autograd.grad(ys, params, cot)
+
+    with torch.no_grad():
+        means = field.step_multi(xyz, fids, y0=xyz)[0]
+
+    def renders_fwd_bwd():
+        p = G.GaussianParams(*(x.detach().requires_grad_()
+                               for x in state.params))
+        st = dataclasses.replace(state, params=p)
+        tap = torch.zeros((state.capacity, 2), device=dev,
+                          requires_grad=True)
+        total = sum((render(st, c, d_xyz=means[i], direct_compute=True, bg=bg,
+                            means2d_tap=tap, depth_grad=False).image
+                     * cams[(i + 1) % k].image).sum()
+                    for i, c in enumerate(cams))
+        return torch.autograd.grad(total, [*p, tap], allow_unused=True)
+
+    imgs = [torch.rand((HEIGHT, WIDTH, 3), device=dev, generator=gen,
+                       requires_grad=True) for _ in range(k)]
+
+    def losses_fwd_bwd():
+        loss = sum(0.8 * l1_loss(im, c.image) + 0.2 * (1 - ssim(im, c.image))
+                   for im, c in zip(imgs, cams)) / k
+        return torch.autograd.grad(loss, imgs)
+
+    grads = G.GaussianParams(*(1e-3 * torch.randn_like(p)
+                               for p in state.params))
+    d_grads = [1e-3 * torch.randn_like(p) for p in params]
+    lrs = G.group_learning_rates(opt, 5000, 1.0)
+
+    def adams():
+        G.adam_step(state.params, grads, state.opt, lrs, mask=state.alive)
+        field.update(dstate, d_grads, 5000)
+
+    out.update({
+        "ode_integral_fwd_ms": cuda_ms(ode_fwd, 3, warmup=1),
+        "ode_integral_fwd_bwd_ms": cuda_ms(ode_fwd_bwd, 3, warmup=1),
+        "k_renders_fwd_bwd_ms": cuda_ms(renders_fwd_bwd, 3, warmup=1),
+        "k_losses_fwd_bwd_ms": cuda_ms(losses_fwd_bwd, 3, warmup=1),
+        "adams_ms": cuda_ms(adams, 5),
+        "k": k, "gaussians": N_BENCH, "size": f"{WIDTH}x{HEIGHT}",
+        "ode_evaluations_per_step": (k - 1) * 4 * 4})
+    prof = profile(run, calls=2)
+    ode_prof = profile(ode_fwd_bwd, calls=2, top=4)
+    out["ode_share_of_device_time"] = (ode_prof["device_ms_per_call"]
+                                       / prof["device_ms_per_call"])
+    out["ode_integral_profile"] = ode_prof
+    return out, prof
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -776,6 +1123,9 @@ def main() -> int:
         rec_s, bins_s, _ = stages(st, look_from_z(z, 64, dev), None, bgs, dup)
         compare_blend(name, rec_s, bins_s, bgs, small)
         compare_blend_bwd(name, rec_s, bins_s, bgs, small, BWD_TOL[name])
+    # ---- 3c. the row kernels vs plain at the tools' shapes ---------------
+    rows_in = row_inputs(dev)
+    row_errs = compare_rows(rows_in)
 
     with tempfile.TemporaryDirectory(prefix="d3gs_smoke_") as tmp:
         # ---- 4. main path: render ---------------------------------------
@@ -784,7 +1134,18 @@ def main() -> int:
         render_result = render_main_path(dev, data, os.path.join(tmp,
                                                                  "model"))
         # ---- 4b. main path: train ---------------------------------------
-        launches = train_main_path(dev, data, os.path.join(tmp, "trained"))
+        train_launches = train_main_path(dev, data,
+                                         os.path.join(tmp, "trained"))
+        # ---- 4c. the three tool paths -----------------------------------
+        tool_launches = tool_paths()
+        # ---- 4d. main path: the flagship ODE trainer --------------------
+        data_f = os.path.join(tmp, "data_flagship")
+        write_dnerf_dataset(data_f, *FLAGSHIP_VIEWS, size=WIDTH)
+        launches = flagship_main_path(dev, data_f,
+                                      os.path.join(tmp, "flagship"))
+    log(f"[4] kernel launches by path: render {render_result['launches']}, "
+        f"train {train_launches}, tools {tool_launches}, flagship "
+        f"{launches}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,
@@ -797,6 +1158,12 @@ def main() -> int:
     tt["card"] = smi
     log("[5] train step: " + json.dumps(tt))
     log("[5] profile of one train step: " + json.dumps(tprof))
+    rt = row_timings(rows_in)
+    log("[5] row kernels at the tools' shapes: " + json.dumps(rt))
+    ft, fprof = flagship_timings(dev, state, bg)
+    ft["card"] = smi
+    log("[5] flagship steps: " + json.dumps(ft))
+    log("[5] profile of one flagship ODE step: " + json.dumps(fprof))
 
     n_rows, m = records.shape[0], int(bins.starts[-1])
     index_bytes = n_rows * 4 + m * 4 + (grid["tiles_x"] * grid["tiles_y"]
@@ -829,7 +1196,17 @@ def main() -> int:
         "launches": launches["blend_bwd"], "max_abs_err": bench_bwd_err,
         "ms": tt["blend_bwd_kernel_ms"], "plain_ms": tt["blend_bwd_plain_ms"],
         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
-    }]
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": f"d3gs_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+        "launches": tool_launches[name], "max_abs_err": row_errs[name],
+        "ms": rt[name]["ms"], "plain_ms": rt[name]["plain_ms"],
+        "bound_ms": rt[name]["bound_ms"], "bound_by": rt[name]["bound_by"],
+        "library_ms": rt[name]["library_ms"],
+    } for name, replaces in (("row_copy", "tools/exp_r5_reduce.py:146"),
+                             ("row_gather", "tools/exp_vmem_gather.py:33"),
+                             ("scatter_add_rows",
+                              "tools/exp_vmem_scatter.py:31"))]
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 gaussian_renderer/__init__.py::render()).
 
 Compositions: additive (means = xyz + d_xyz, scales = exp(s)·mod + d_s,
-rotations = normalize(q) + d_r, normalized again inside the projection) and
-direct (`direct_compute`: d_xyz are absolute positions, the ODE path).
+rotations = normalize(q) + d_r, normalized again inside the projection),
+direct (`direct_compute`: d_xyz are absolute positions, the ODE path) and
+6DoF (`is_6dof`: d_xyz is a per-Gaussian (N, 4, 4) SE(3) applied to the
+canonical means).
 SH→RGB happens here per view direction. Then projection, binning, record
 packing and the tile blend (the CUDA kernels on the card). The whole path is
 differentiable except the binning, which runs without autograd on the
@@ -24,6 +26,7 @@ from ..ops.blend import blend_records
 from ..ops.projection import TILE, project_gaussians
 from ..ops.rasterize import RenderOutput, pack_records
 from ..ops.sh import eval_sh_upto
+from ..ops.transforms import apply_se3
 from .gaussians import GaussianState
 
 
@@ -44,15 +47,13 @@ def render(
     means2d_tap: Optional[torch.Tensor] = None,
     depth_grad: bool = True,
 ) -> RenderOutput:
-    if is_6dof:
-        raise NotImplementedError(
-            "6DoF deformation is not ported yet (ROADMAP.md, Queue 1: "
-            "flagship / neural-ODE slice)")
     p = gaussians.params
-    if direct_compute and isinstance(d_xyz, torch.Tensor) and d_xyz.ndim >= 2:
-        means3d = d_xyz
-    elif direct_compute:
-        means3d = p.xyz
+    is_field = isinstance(d_xyz, torch.Tensor)
+    if direct_compute:
+        # a scalar 0.0 (warm-up) leaves the canonical means in place
+        means3d = d_xyz if is_field and d_xyz.ndim >= 2 else p.xyz
+    elif is_6dof and is_field and d_xyz.ndim == 3:
+        means3d = apply_se3(d_xyz, p.xyz)
     else:
         means3d = p.xyz + d_xyz
 

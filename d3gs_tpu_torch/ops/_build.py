@@ -90,3 +90,12 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+def entry(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `d3gs_<name>` of kernel `name`, with its argument
+    types set; it returns the launch's cudaError_t as an int."""
+    fn = getattr(load(name), "d3gs_" + name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -318,13 +318,6 @@ _BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
                  + [ctypes.c_void_p])                 # stream
 
 
-def _kernel(name: str, argtypes):
-    fn = getattr(_build.load(name), "d3gs_" + name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(name, t, dtype, shape, device):
     if t.dtype != dtype or t.device != device or not t.is_contiguous():
         raise ValueError(f"blend: {name} must be a contiguous {dtype} tensor "
@@ -376,7 +369,7 @@ def launch(records, bins, bg, out: BlendOutput, *, tiles_x: int,
     height, width = out.depth.shape
     dev = records.device
     with torch.cuda.device(dev):
-        err = _kernel("blend_fwd", _FWD_ARGTYPES)(
+        err = _build.entry("blend_fwd", _FWD_ARGTYPES)(
             records.data_ptr(), records.stride(0), bins.order.data_ptr(),
             bins.rank_sorted.data_ptr(), bins.starts.data_ptr(),
             bg.data_ptr(), tiles_x, tiles_y, width, height,
@@ -422,7 +415,7 @@ def launch_bwd(records, bins, bg, fwd: BlendOutput, g_image, g_depth,
     height, width = fwd.log_t.shape
     dev = records.device
     with torch.cuda.device(dev):
-        err = _kernel("blend_bwd", _BWD_ARGTYPES)(
+        err = _build.entry("blend_bwd", _BWD_ARGTYPES)(
             records.data_ptr(), records.stride(0), bins.order.data_ptr(),
             bins.rank_sorted.data_ptr(), bins.starts.data_ptr(),
             bg.data_ptr(), tiles_x, tiles_y, width, height,

@@ -22,22 +22,6 @@ BENCH_WARMUP = 5
 BENCH_FRAMES = 50
 
 
-def pick_field_spec(model_cfg: C.ModelParams):
-    """Reference train.py:55-66 model selection (copy of
-    `d3gs_tpu/train/flagship.py::pick_field_spec`, MLP fields only)."""
-    from .models.deform.fields import DeformFieldSpec
-    if model_cfg.use_torch_ode:
-        kind = "simple_start"
-    elif model_cfg.is_ode:
-        kind = "ode"
-    else:
-        kind = "baseline"
-    return DeformFieldSpec(
-        kind=kind, is_blender=model_cfg.is_blender,
-        is_6dof=model_cfg.is_6dof, D=model_cfg.D, W=model_cfg.W,
-        multires=model_cfg.multires, compute_dtype=model_cfg.deform_dtype)
-
-
 def benchmark(render_at, state, field, view, bg, *, warmup=BENCH_WARMUP,
               frames=BENCH_FRAMES) -> dict:
     """Render-only frame time of `view` on the card, from CUDA events around
@@ -95,22 +79,25 @@ def main(argv=None) -> dict:
     pipe_cfg = C.extract_group(args, C.PipelineParams)
 
     from .data.scene import Scene
-    from .models.deform.fields import create_deform_field, load_deform_weights
+    from .models.deform.fields import (ODE_KINDS, create_deform_field,
+                                       load_deform_weights)
     from .render_eval import render_modes as RM
+    from .train.flagship import pick_field_spec
 
     scene = Scene(model_cfg, load_iteration=args.iteration, shuffle=False,
                   capacity=pipe_cfg.capacity, device=device)
     state = scene.gaussians
     iteration = scene.loaded_iter
 
-    spec = pick_field_spec(model_cfg)
+    spec = pick_field_spec(model_cfg, C.OptimizationParams())
     field = create_deform_field(spec, device=device)
     field = load_deform_weights(model_cfg.model_path, field, args.iteration)
 
     bg = torch.full((3,), 1.0 if model_cfg.white_background else 0.0,
                     device=device)
     render_at = RM.make_render_fn(state, field, pipe_cfg,
-                                  is_6dof=model_cfg.is_6dof)
+                                  is_6dof=model_cfg.is_6dof,
+                                  direct_compute=spec.kind in ODE_KINDS)
 
     train_views = scene.get_train_cameras()
     test_views = scene.get_test_cameras() or train_views[:5]

@@ -1,0 +1,1 @@
+"""Dev tools of the port (counterparts of the repository's `tools/`)."""

@@ -1,13 +1,18 @@
 """CLI: train a deformable-3DGS model with the port (counterpart of the
-repository's `train.py --trainer baseline`).
+repository's `train.py`).
 
     python -m d3gs_tpu_torch.train -s <data> -m <out> --is_blender --eval \
-        [--device cpu] [--iterations N] ...
+        [--trainer baseline|flagship] [--base_model_path <run>] \
+        [--configs configs/<preset>.py] [--device cpu] [--iterations N] ...
 
 Same flags and `cfg_args` as the JAX CLI. The Gaussians start from the
-dataset's point cloud and train on the card (`cuda`) unless `--device cpu`
-asks for the CPU; the checkpoints (`point_cloud/iteration_N/point_cloud.ply`,
+dataset's point cloud, or with `--base_model_path` from the newest
+checkpoint PLY of that run, frozen (`freeze_gaussians`), and train on the
+card (`cuda`) unless `--device cpu` asks for the CPU. `--trainer flagship`
+runs the k-camera / neural-ODE trainer (`--is_ode`, `--use_torch_ode` pick
+the ODE fields). The checkpoints (`point_cloud/iteration_N/point_cloud.ply`,
 `deform/iteration_N/deform.npz`) load in either package's renderer.
+`--mesh_shape` (multi-GPU) raises.
 """
 from __future__ import annotations
 
@@ -19,8 +24,6 @@ import torch
 
 from .. import config as C
 from .. import resolve_device
-
-_SLICE3 = "(ROADMAP.md, Queue 1: slice 3, the flagship / neural-ODE trainer)"
 
 
 def main(argv=None):
@@ -47,12 +50,6 @@ def main(argv=None):
                         help="torch device (default cuda; cpu on request)")
     args = parser.parse_args(argv)
 
-    if args.trainer != "baseline":
-        raise NotImplementedError(f"--trainer {args.trainer} is not ported "
-                                  f"yet {_SLICE3}")
-    if args.base_model_path:
-        raise NotImplementedError(f"--base_model_path is not ported yet "
-                                  f"{_SLICE3}")
     device = resolve_device(args.device)
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
 
@@ -64,8 +61,8 @@ def main(argv=None):
                                            "pipeline": pipe_cfg,
                                            "optimization": opt_cfg})
     if pipe_cfg.mesh_shape:
-        raise NotImplementedError(f"--mesh_shape is not ported yet {_SLICE3}; "
-                                  "multi-GPU is slice 7")
+        raise NotImplementedError("--mesh_shape is not ported yet (ROADMAP.md,"
+                                  " Queue 1: slice 7, multi-GPU)")
 
     if not model_cfg.model_path:
         model_cfg.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
@@ -73,12 +70,24 @@ def main(argv=None):
     C.save_cfg_args(model_cfg.model_path, model_cfg)
     print(f"Output folder: {model_cfg.model_path}")
 
-    from ..data.scene import Scene
-    from .baseline import train_baseline
+    from ..data.scene import Scene, load_gaussians_ply, \
+        search_for_max_iteration
 
     scene = Scene(model_cfg, capacity=pipe_cfg.capacity, seed=args.seed,
                   device=device)
-    result = train_baseline(
+    frozen = bool(args.base_model_path)
+    if frozen:
+        # warm start from the pretrained run's newest point cloud, frozen
+        pc = os.path.join(args.base_model_path, "point_cloud")
+        it = search_for_max_iteration(pc)
+        scene.gaussians = load_gaussians_ply(
+            os.path.join(pc, f"iteration_{it}", "point_cloud.ply"),
+            sh_degree=model_cfg.sh_degree,
+            spatial_lr_scale=scene.cameras_extent,
+            max_gaussians=model_cfg.max_gaussians,
+            capacity=pipe_cfg.capacity, device=device)
+        opt_cfg.freeze_gaussians = True
+    common = dict(
         gaussians=scene.gaussians, train_cams=scene.get_train_cameras(),
         test_cams=scene.get_test_cameras(),
         cameras_extent=scene.cameras_extent, model_cfg=model_cfg,
@@ -87,6 +96,12 @@ def main(argv=None):
         save_iterations=set(args.save_iterations + [opt_cfg.iterations]),
         model_path=model_cfg.model_path, seed=args.seed,
         progress=not args.quiet)
+    if args.trainer == "baseline":
+        from .baseline import train_baseline
+        result = train_baseline(**common)
+    else:
+        from .flagship import train_flagship
+        result = train_flagship(base_model_frozen=frozen, **common)
     print(f"Best PSNR = {result.best_psnr:.2f} "
           f"in Iteration {result.best_iteration}")
     return result

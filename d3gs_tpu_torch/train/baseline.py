@@ -113,8 +113,6 @@ def train_baseline(
     eval_render = make_eval_render(pipe_cfg=pipe_cfg,
                                    is_6dof=model_cfg.is_6dof,
                                    deform_fn=deform_fn)
-    densify, reset_opacity, oneup = densify_fns(opt_cfg)
-
     state = gaussians
     result = TrainResult(state=state, field=field, deform_state=deform_state)
     viewpoint_stack: list[Camera] = []
@@ -123,7 +121,7 @@ def train_baseline(
 
     for iteration in range(1, opt_cfg.iterations + 1):
         if iteration % 1000 == 0:
-            state = oneup(state)
+            state = G.oneup_sh_degree(state)
         if not viewpoint_stack:
             viewpoint_stack = list(stack_template)
         cam = viewpoint_stack.pop(rng.randint(0, len(viewpoint_stack) - 1))
@@ -156,39 +154,59 @@ def train_baseline(
                 result.best_iteration = iteration
 
         if iteration in save_iterations and model_path:
-            pc_dir = os.path.join(model_path, "point_cloud",
-                                  f"iteration_{iteration}")
-            os.makedirs(pc_dir, exist_ok=True)
-            save_gaussians_ply(os.path.join(pc_dir, "point_cloud.ply"), state)
-            save_deform_weights(model_path, iteration, field)
+            save_checkpoint(model_path, iteration, state, field)
 
         # densify / reset AFTER report and save (reference order,
         # train_baseline.py:157-182): an eval at a reset iteration sees
         # the state before the reset
         if iteration < opt_cfg.densify_until_iter:
-            if (iteration > opt_cfg.densify_from_iter
-                    and iteration % opt_cfg.densification_interval == 0):
-                before = (state.num_alive, state.capacity)
-                if (before[0] > 0.9 * state.capacity
-                        and state.capacity < model_cfg.max_gaussians):
-                    state = G.grow_capacity(state, min(
-                        G.round_capacity(state.capacity * 2),
-                        G.round_capacity(model_cfg.max_gaussians)))
-                size_thresh = (20.0 if iteration
-                               > opt_cfg.opacity_reset_interval else 0.0)
-                state = densify(state, gen, size_thresh, cameras_extent)
-                result.densify_events.append(
-                    (iteration, *before, state.num_alive, state.capacity))
-                if state.num_alive == 0:
-                    print(f"WARNING: all gaussians pruned at iteration "
-                          f"{iteration} (size/opacity thresholds wiped the "
-                          f"scene; consider a shorter warm_up or a later "
-                          f"opacity_reset_interval)")
-            if (iteration % opt_cfg.opacity_reset_interval == 0
-                    or (model_cfg.white_background
-                        and iteration == opt_cfg.densify_from_iter)):
-                state = reset_opacity(state)
+            state = densify_cadence(state, iteration, opt_cfg=opt_cfg,
+                                    model_cfg=model_cfg, gen=gen,
+                                    cameras_extent=cameras_extent,
+                                    events=result.densify_events)
 
     result.state = state
     result.deform_state = deform_state
     return result
+
+
+def save_checkpoint(model_path: str, iteration: int, state: G.GaussianState,
+                    field) -> None:
+    """point_cloud/iteration_N/point_cloud.ply and deform/iteration_N/
+    deform.npz, in the layouts both packages read."""
+    pc_dir = os.path.join(model_path, "point_cloud", f"iteration_{iteration}")
+    os.makedirs(pc_dir, exist_ok=True)
+    save_gaussians_ply(os.path.join(pc_dir, "point_cloud.ply"), state)
+    save_deform_weights(model_path, iteration, field)
+
+
+def densify_cadence(state: G.GaussianState, iteration: int, *, opt_cfg,
+                    model_cfg, gen: torch.Generator, cameras_extent: float,
+                    events: list) -> G.GaussianState:
+    """The host cadence of both trainers before densify_until_iter: grow
+    the buffer when densification fills 90 % of it, densify and prune every
+    densification_interval after densify_from_iter (appending (iteration,
+    alive, capacity before, alive, capacity after) to `events`), and reset
+    the opacities on their interval."""
+    densify, reset_opacity, _ = densify_fns(opt_cfg)
+    if (iteration > opt_cfg.densify_from_iter
+            and iteration % opt_cfg.densification_interval == 0):
+        before = (state.num_alive, state.capacity)
+        if (before[0] > 0.9 * state.capacity
+                and state.capacity < model_cfg.max_gaussians):
+            state = G.grow_capacity(state, min(
+                G.round_capacity(state.capacity * 2),
+                G.round_capacity(model_cfg.max_gaussians)))
+        size_thresh = (20.0 if iteration > opt_cfg.opacity_reset_interval
+                       else 0.0)
+        state = densify(state, gen, size_thresh, cameras_extent)
+        events.append((iteration, *before, state.num_alive, state.capacity))
+        if state.num_alive == 0:
+            print(f"WARNING: all gaussians pruned at iteration {iteration} "
+                  f"(size/opacity thresholds wiped the scene; consider a "
+                  f"shorter warm_up or a later opacity_reset_interval)")
+    if (iteration % opt_cfg.opacity_reset_interval == 0
+            or (model_cfg.white_background
+                and iteration == opt_cfg.densify_from_iter)):
+        state = reset_opacity(state)
+    return state

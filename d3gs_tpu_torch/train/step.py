@@ -116,9 +116,11 @@ def make_train_step(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
 
 
 def make_eval_render(*, pipe_cfg, is_6dof: bool = False,
+                     direct_compute: bool = False,
                      deform_fn: Optional[Callable] = None):
     """No-grad render for the PSNR evaluation (training_report semantics,
-    train.py:355-422): the deformation without time noise."""
+    train.py:355-422): the deformation without time noise;
+    `direct_compute` renders it as absolute positions (the ODE kinds)."""
 
     @torch.no_grad()
     def eval_render(state: G.GaussianState, use_deform: bool,
@@ -129,8 +131,8 @@ def make_eval_render(*, pipe_cfg, is_6dof: bool = False,
         else:
             dx, dr, ds = 0.0, 0.0, 0.0
         return render(state, camera, d_xyz=dx, d_rotation=dr, d_scaling=ds,
-                      is_6dof=is_6dof, bg=bg,
-                      dup_capacity=pipe_cfg.dup_capacity,
+                      is_6dof=is_6dof, direct_compute=direct_compute,
+                      bg=bg, dup_capacity=pipe_cfg.dup_capacity,
                       antialias=pipe_cfg.antialias)
 
     return eval_render

@@ -85,7 +85,15 @@ def test_positional_encoding():
 
 
 def test_unported_kinds_raise():
+    """The ODE kinds and the 6DoF head are ported; the adaptive solver and
+    a bf16 compute dtype still raise, naming ROADMAP.md."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.create_deform_field(F.DeformFieldSpec(kind="ode"), device="cpu")
+        F.create_deform_field(F.DeformFieldSpec(kind="ode",
+                                                solver="adaptive"),
+                              device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.create_deform_field(F.DeformFieldSpec(is_6dof=True), device="cpu")
+        F.create_deform_field(F.DeformFieldSpec(compute_dtype="bfloat16"),
+                              device="cpu")
+    for spec in (F.DeformFieldSpec(kind="ode"),
+                 F.DeformFieldSpec(is_6dof=True)):
+        assert F.create_deform_field(spec, device="cpu").spec == spec

@@ -89,7 +89,8 @@ def test_render_path_matches_jax(model_dir, jax_renders):
     from d3gs_tpu_torch.render_eval import render_modes as RM
     cfg = TC.ModelParams(**TC.load_cfg_args(model_dir))
     scene = Scene(cfg, load_iteration=-1, shuffle=False, device="cpu")
-    field = tload(model_dir, tcreate(trender.pick_field_spec(cfg),
+    from d3gs_tpu_torch.train.flagship import pick_field_spec as tpick
+    field = tload(model_dir, tcreate(tpick(cfg, TC.OptimizationParams()),
                                      device="cpu"))
     render_at = RM.make_render_fn(scene.gaussians, field, TC.PipelineParams())
     views = scene.get_test_cameras()

@@ -37,6 +37,7 @@ from d3gs_tpu_torch.data.cameras import Camera as TCamera
 from d3gs_tpu_torch.models.deform import fields as TF
 from d3gs_tpu_torch.train import step as TS
 from tests.test_cli_end_to_end import write_blender_dataset
+from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 from tests.test_torch_port_gaussians import to_torch
 from tests.test_train_static import gt_state, make_camera
 
@@ -251,8 +252,11 @@ def test_checkpoint_loads_in_both_packages(trained):
 
 
 def test_cli_raises_on_unported_trainers(tmp_path):
+    """The flagship trainer and --base_model_path are ported (see
+    test_torch_port_flagship.py); the multi-GPU mesh still raises."""
     from d3gs_tpu_torch.train.__main__ import main
-    for extra in (["--trainer", "flagship"], ["--base_model_path", "x"]):
-        with pytest.raises(NotImplementedError, match="slice 3"):
+    for trainer in ("baseline", "flagship"):
+        with pytest.raises(NotImplementedError, match="slice 7"):
             main(["-s", str(tmp_path), "-m", str(tmp_path / "m"),
-                  "--device", "cpu", *extra])
+                  "--device", "cpu", "--trainer", trainer,
+                  "--mesh_shape", "2"])

@@ -11,6 +11,7 @@ import math
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from d3gs_tpu.models import gaussians as G
@@ -20,6 +21,19 @@ from d3gs_tpu.ops.transforms import cov3d_packed
 
 W = H = 64
 TX = TY = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch intra-op thread for the module's tests (autouse where a
+    test module imports it). Their tensors are small, and tier-1 runs six
+    pytest workers on the same cores: with PyTorch's default of a thread
+    per core the workers oversubscribe the CPU, and the JAX tests beside
+    them slow down with the port's."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 FOV = math.radians(60)
 
 
