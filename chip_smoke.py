@@ -5,15 +5,22 @@
 Phases (any failure exits non-zero):
   1. device: card name and power limit, the TF32 flags (both must be off);
   2. build: every CUDA kernel of the port, compiled from csrc/ with nvcc,
-     one process per source, all started together;
-  3. each kernel against its plain PyTorch version on the card: the blend
-     kernels on the bench scene (bench.py's recipe: 43,132 Gaussians,
-     400x400, SH degree 3, the 8x256 Blender deform MLP at t=0.5) and the
-     small blend scenes of tests/test_pallas_blend.py, the forward at atol
-     5e-5 / rtol 1e-4, the backward (with and without the depth term)
-     relative to its largest gradient at that file's tolerances; (3c) the
-     row kernels at the shapes of the tools that run them, the copy and the
-     gather bit-equal, the scatter-add within 1e-5 of the largest |sum|;
+     one process per source, all started together, with ptxas's report
+     (registers, shared memory, spills); the loops of both blend kernels
+     read from `cuobjdump -sass` (instructions, SFU, shuffles, atomics);
+  3. each kernel against its plain PyTorch version on the card: the forward
+     kernel's log1p against the library's log1pf on every f32 alpha in
+     (0, 0.99]; the blend kernels on the bench scene (bench.py's recipe:
+     43,132 Gaussians, 400x400, SH degree 3, the 8x256 Blender deform MLP
+     at t=0.5), the small blend scenes of tests/test_pallas_blend.py and
+     two scenes at the per-warp design's edges (`deep`: 3,000 stacked
+     Gaussians of opacity 0.01, pixels that include ~900 records;
+     `warp_edge`: ellipses that end just inside or outside a 16x2 strip or
+     a tile column), the forward at atol 5e-5 / rtol 1e-4, the backward
+     (with and without the depth term) relative to its largest gradient at
+     that file's tolerances; (3c) the row kernels at the shapes of the
+     tools that run them, the copy and the gather bit-equal, the
+     scatter-add within 1e-5 of the largest |sum|;
   4. the main paths, each with the kernels' counts set to 0 just before it
      and read just after:
      4.  render: a D-NeRF-format dataset and a model directory at the bench
@@ -31,16 +38,19 @@ Phases (any failure exits non-zero):
          switch, a densify pass, an evaluation and a checkpoint, rendered
          through `render.main` and held against the plain blend;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
-     stages and the frame, the train step and its layers, each kernel
-     alone, through its wrapper and in its plain version, the backward
-     kernel again on the train step's own scene; the row kernels alone
-     beside their library calls and plain versions; one ODE flagship step
-     at k = 10 and its layers, one MLP-kind flagship step;
-  6. the card, one JSON line of the kernels (the blend kernels' launches
-     from the flagship path, the row kernels' from their tools' paths;
-     the blend bounds from the pixel-record pairs each kernel evaluates on
-     the bench scene, counted by `blend_work`, the row bounds from the
-     bytes each must move), and the final status line.
+     stages and the frame, the train step and its layers, both blend
+     kernels alone (CUDA events and profiler device time) on the bench
+     scene and on the train step's own scene, through their wrappers and
+     in their plain versions; the row kernels alone beside their library
+     calls and plain versions; one ODE flagship step at k = 10 and its
+     layers, one MLP-kind flagship step;
+  6. the card, the blend bounds (from the pixel-record pairs each kernel
+     evaluates on the bench scene, counted by `blend_work`, under this
+     source's count and without the cull) and the issue-rate model (SASS
+     instructions per visit times visits over 4 per clock on 132 SMs), one
+     JSON line of the kernels (the blend kernels' launches from the
+     flagship path, the row kernels' from their tools' paths; the row
+     bounds from the bytes each must move), and the final status line.
 It imports nothing of JAX or of the JAX package `d3gs_tpu`.
 """
 from __future__ import annotations
@@ -64,7 +74,10 @@ ROW_SCATTER_TOL = 1e-5           # scatter-add vs plain, of the largest |sum|
 # backward tolerance relative to the largest gradient
 # (tests/test_pallas_blend.py:90-92, 138-140)
 BWD_TOL = {"random": 2e-4, "random_budget512": 5e-4, "saturated": 5e-4,
-           "overflow48": 5e-4, "bench": 2e-4}
+           "overflow48": 5e-4, "bench": 2e-4,
+           # the two scenes at the per-warp design's edges take the family
+           # of their kind: a long saturating stack, a random scene
+           "deep": 5e-4, "warp_edge": 2e-4}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 # transcendentals (exp, log): 16 SFU results / clock / SM (CUDA C programming
@@ -72,17 +85,26 @@ F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 # at the 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # Work per pixel-record pair, counted from the kernels' source. Every pair a
-# kernel reaches evaluates the Gaussian (dx, dy, the conic's quadratic, the
-# opacity product: 12 f32 operations) and one exp. Only a pair whose alpha
-# reaches 1/255 (an included one) goes on:
-#   csrc/blend_fwd.cu: clamp, log T update, w, 4 accumulations: 11 ops,
-#     log1p and exp;
-#   csrc/blend_bwd.cu (depth_grad=False): clamp, T_before, w, g·rgb,
-#     g_alpha, suffix, log T, g_power, the 9 partials and their 9-way sum
-#     over pixels: 46 ops, log1p and exp.
+# kernel evaluates (a record its strip's cull keeps, before the pixel's
+# n_walked or last_contrib) costs the Gaussian (dx, dy, the conic's
+# quadratic, the opacity product: 12 f32 operations) and one exp. Only a
+# pair whose alpha reaches 1/255 (an included one) goes on:
+#   csrc/blend_fwd.cu: clamp, log T update, include test, w, 4
+#     accumulations: 11 ops, log1p and exp;
+#   csrc/blend_bwd.cu (depth_grad=False): clamp, 1 - alpha, T_before, w,
+#     g·rgb (5), g_alpha (4), the suffix (2), g_power, the 9 partials (17)
+#     and their 9-way sum over pixels: 42 ops and one reciprocal.
+# A backward in log space (T_before = exp(L - log1p(-alpha))) spends 46 ops,
+# log1p and exp per included pair; the bound under that count, with every
+# pair before n_walked / last_contrib (no cull), is printed beside the new
+# one.
 PAIR_FLOPS, PAIR_SFU = 12, 1
 FWD_INC_FLOPS, FWD_INC_SFU = 11, 2
-BWD_INC_FLOPS, BWD_INC_SFU = 46, 2
+BWD_INC_FLOPS, BWD_INC_SFU = 42, 1
+BWD_INC_LOG_T = (46, 2)
+# the issue-rate model: 4 warp schedulers per SM, one instruction each per
+# clock, at the 1.98 GHz boost clock
+ISSUE_PER_S = 132 * 4 * 1.98e9
 TRAIN_ITERATIONS = 20            # the training main path's steps
 FLAGSHIP_ITERATIONS = 10         # the flagship main path's steps
 FLAGSHIP_K = 10                  # cameras per flagship step
@@ -237,6 +259,88 @@ def small_scenes(dev):
             ("saturated", ss, 4.0, 0, bg0), ("overflow48", ss, 4.0, 48, bg0)]
 
 
+def deep_scene(dev):
+    """`deep`, 64x64: 3,000 Gaussians of opacity 0.01 (σ 0.9) stacked in
+    depth over the four central tiles, so that a pixel includes up to ~900
+    records (0.99^900 ≈ 1e-4) and the kernels walk ~30 chunks of 32 and
+    their prefetches; pixels off the stack's centre walk the whole list."""
+    from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
+    from d3gs_tpu_torch.ops.sh import rgb2sh
+    rng = np.random.default_rng(7)
+    n, cap = 3000, 3072
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[:n, :2] = rng.uniform(-0.3, 0.3, (n, 2))
+    xyz[:n, 2] = np.linspace(2.0, 3.0, n)
+    rot = np.zeros((cap, 4), np.float32)
+    rot[:, 0] = 1
+    params = {"xyz": xyz, "features_dc": np.zeros((cap, 1, 3), np.float32),
+              "features_rest": np.zeros((cap, 0, 3), np.float32),
+              "scaling": np.full((cap, 3), math.log(0.9), np.float32),
+              "rotation": rot,
+              "opacity": np.full((cap, 1), math.log(0.01 / 0.99), np.float32)}
+    params["features_dc"][:n, 0] = rgb2sh(rng.uniform(0, 1, (n, 3)))
+    return gaussians_from_numpy(params, np.arange(cap) < n, 0, 0, dev)
+
+
+def warp_edge_scene(dev, n: int = 600, size: int = 64):
+    """`warp_edge`, 64x64: n anisotropic splats made in screen space (σ
+    0.4-20 px at any angle; 30 % at opacities within 2 % above 1/255), each
+    placed so that an extreme point of its 1/255 ellipse lies on an integer
+    pixel column or row and 0.02-0.3 px inside or outside the last row of
+    a 16x2 strip, the first row of the next, or a tile's last or first
+    column: the edges of the kernels' per-warp cull. -> (records, bins)."""
+    from d3gs_tpu_torch.ops.binning import bin_splats_records
+    from d3gs_tpu_torch.ops.projection import ProjectedSplats
+    from d3gs_tpu_torch.ops.rasterize import pack_records
+    rng = np.random.default_rng(11)
+    th = rng.uniform(0.0, np.pi, n)
+    sl, ss = rng.uniform(2.0, 20.0, n), rng.uniform(0.4, 2.5, n)
+    opa = np.where(rng.random(n) < 0.3,
+                   (1.0 + rng.uniform(1e-5, 0.02, n)) / 255.0,
+                   rng.uniform(0.02, 0.99, n))
+    co, si = np.cos(th), np.sin(th)
+    sxx = co * co * sl * sl + si * si * ss * ss
+    syy = si * si * sl * sl + co * co * ss * ss
+    sxy = co * si * (sl * sl - ss * ss)
+    det = sxx * syy - sxy * sxy
+    tau = 2.0 * np.log(255.0 * opa)
+    hx, hy = np.sqrt(tau * sxx), np.sqrt(tau * syy)
+    # off the edge by at least 0.02 px either way: a pixel within rounding
+    # of alpha = 1/255 flips between any two f32 evaluations (the cull's
+    # own margins are tested to the ulp by tests/test_torch_port_blend_cull)
+    delta = rng.choice([-0.3, -0.05, -0.02, 0.02, 0.05, 0.3], n)
+    side = rng.integers(0, 4, n)
+    row = 2 * rng.integers(0, size // 2, n) + 1       # a strip's last row
+    col = 16 * rng.integers(0, size // 16, n) + 15    # a tile's last column
+    at = rng.integers(0, size, n).astype(np.float64)  # the extreme's pixel
+    # the y-extreme sits at x = mean.x ± sxy/syy·hy, the x-extreme at
+    # y = mean.y ± sxy/sxx·hx
+    my = np.select([side == 0, side == 1], [row + delta - hy,
+                                            row + 1 - delta + hy],
+                   at - np.where(side == 2, 1.0, -1.0) * sxy / sxx * hx)
+    mx = np.select([side == 2, side == 3], [col + delta - hx,
+                                            col + 1 - delta + hx],
+                   at - np.where(side == 0, 1.0, -1.0) * sxy / syy * hy)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    tiles = size // 16
+    lo_x, hi_x = np.floor((mx - hx - 1) / 16), np.floor((mx + hx + 1) / 16)
+    lo_y, hi_y = np.floor((my - hy - 1) / 16), np.floor((my + hy + 1) / 16)
+    tmin = np.clip(np.stack([lo_x, lo_y], -1), 0, tiles)
+    tmax = np.clip(np.stack([hi_x, hi_y], -1) + 1, 0, tiles)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    splats = ProjectedSplats(
+        means2d=f(np.stack([mx, my], -1)), depths=f(rng.uniform(1, 10, n)),
+        conics=f(np.stack([syy / det, -sxy / det, sxx / det], -1)),
+        radii=i32(np.ceil(np.maximum(hx, hy))),
+        colors=f(rng.uniform(0, 1, (n, 3))),
+        opacities=f(opa), tile_min=i32(tmin), tile_max=i32(tmax),
+        visible=torch.ones(n, dtype=torch.bool, device=dev),
+        cull_radius=f(np.maximum(hx, hy)))
+    return pack_records(splats), bin_splats_records(splats, tiles_x=tiles,
+                                                    tiles_y=tiles)
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -300,6 +404,25 @@ def compare_blend(name, records, bins, bg, grid) -> float:
         raise AssertionError(f"{name}: last included record differs at "
                              f"{100 * (1 - same_last):.4f}% of pixels")
     return worst
+
+
+def check_log1p(dev) -> int:
+    """Phase 3: the forward kernel's branch-free log1p against the CUDA
+    library's log1pf, bit for bit, on every f32 alpha in (0, 0.99] (the
+    check kernel of csrc/blend_fwd.cu); raises on any mismatch."""
+    import ctypes
+    from d3gs_tpu_torch.ops import _build
+    fn = _build.load("blend_fwd").d3gs_blend_fwd_log1p_mismatches
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    if fn(count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream):
+        raise RuntimeError("log1p check kernel failed to launch")
+    bad = int(count)
+    log(f"[3] log1p of the forward kernel vs log1pf over the f32 alpha in "
+        f"(0, 0.99]: {bad} differ")
+    if bad:
+        raise AssertionError(f"log1p differs from log1pf at {bad} inputs")
+    return bad
 
 
 def blend_loss_grads(out):
@@ -385,47 +508,185 @@ def roofline(bytes_moved, flops, sfu):
 @torch.no_grad()
 def blend_work(records, bins, fwd, *, tiles_x, tiles_y, width, height,
                tile_chunk: int = 16) -> dict:
-    """Pixel-record pairs the blend kernels evaluate on these inputs:
-    `walked` = sum of n_walked (the forward), `range` = sum of last_contrib
-    (the backward), of each the pairs whose alpha reaches 1/255
-    (`walked_inc`, `range_inc`), and the Gaussians with at least one such
-    pair in the backward's range (`gaussians_reached`), from the records
-    as the kernels read them."""
+    """Pixel-record pairs the blend kernels evaluate on these inputs, from
+    the records as the kernels read them. A kernel's warp owns a 16x2
+    strip and visits only the records of its tile's list that the cull
+    (`blend.warp_rows_hit`) keeps for the strip, up to the strip's deepest
+    pixel. `walked` / `range`: a pixel's pairs with a kept record before
+    its n_walked (the forward) / last_contrib (the backward);
+    `walked_all` / `range_all`: the same without the cull (sum of n_walked,
+    of last_contrib: what a per-tile kernel without the cull evaluates); of
+    each, the pairs whose alpha
+    reaches 1/255 (`walked_inc`, `range_inc`; the cull keeps them all);
+    `fwd_visits` / `bwd_visits`: the (warp, record) visits, kept records
+    before the strip's largest n_walked / last_contrib (`*_tile_steps`: the
+    warp steps of a per-tile kernel that culls nothing); and the Gaussians
+    with at least one included pair in the backward's range
+    (`gaussians_reached`)."""
     from d3gs_tpu_torch.ops import blend as B
+    dev = records.device
     starts = bins.starts.long()
     counts = starts[1:] - starts[:-1]
-    gid = bins.order.long()[bins.rank_sorted.long()]
-    pix = torch.arange(B.P, device=records.device)
+    gid = B.sorted_gids(bins).long()
+    pix = torch.arange(B.P, device=dev)
     lx, ly = (pix % B.TILE).float(), (pix // B.TILE).float()
     walked = B._tiles(fwd.n_walked, tiles_x, tiles_y).long()
     last = B._tiles(fwd.last_contrib, tiles_x, tiles_y).long()
-    walked_inc = range_inc = 0
-    reached = torch.zeros(records.shape[0], dtype=torch.bool,
-                          device=records.device)
+    strips = B.TILE // 2
+    w_max = walked.view(-1, strips, 32).amax(-1)            # (T, 8)
+    l_max = last.view(-1, strips, 32).amax(-1)
+    work = dict.fromkeys(("walked", "walked_inc", "range", "range_inc",
+                          "fwd_visits", "bwd_visits"), 0)
+    reached = torch.zeros(records.shape[0], dtype=torch.bool, device=dev)
     for c0 in range(0, tiles_x * tiles_y, tile_chunk):
         tiles = torch.arange(c0, min(c0 + tile_chunk, tiles_x * tiles_y),
-                             device=records.device)
+                             device=dev)
         cnt = counts[tiles]
-        k = torch.arange(int(cnt.max()), device=records.device)
-        idx = torch.where(k[None, :] < cnt[:, None],
-                          starts[tiles][:, None] + k[None, :], 0)
+        k = torch.arange(int(cnt.max()), device=dev)
+        live = k[None, :] < cnt[:, None]
+        idx = torch.where(live, starts[tiles][:, None] + k[None, :], 0)
         r = records[gid[idx]]                                  # (Tc, K, 16)
-        dx = r[..., 0:1] - (((tiles % tiles_x) * B.TILE).float()[:, None,
-                                                                 None] + lx)
-        dy = r[..., 1:2] - (((tiles // tiles_x) * B.TILE).float()[:, None,
-                                                                  None] + ly)
+        ox = ((tiles % tiles_x) * B.TILE).float()
+        oy = ((tiles // tiles_x) * B.TILE).float()
+        dx = r[..., 0:1] - (ox[:, None, None] + lx)
+        dy = r[..., 1:2] - (oy[:, None, None] + ly)
         power = (-0.5 * (r[..., 2:3] * dx * dx + r[..., 4:5] * dy * dy)
                  - r[..., 3:4] * dx * dy)
         hit = (power <= 0.0) & (r[..., 8:9] * torch.exp(power)
                                 >= B.ALPHA_MIN)                # (Tc, K, P)
+        y0 = oy[:, None] + 2.0 * torch.arange(strips, device=dev)
+        keep = B.warp_rows_hit(r[:, :, None, :], ox[:, None, None],
+                               y0[:, None, :]) & live[..., None]  # (Tc,K,8)
+        keep_pix = keep.repeat_interleave(32, dim=-1)          # (Tc, K, P)
         kk = k[None, :, None]
-        walked_inc += int((hit & (kk < walked[tiles][:, None, :])).sum())
-        used = hit & (kk < last[tiles][:, None, :])
-        range_inc += int(used.sum())
+        before_w = kk < walked[tiles][:, None, :]
+        before_l = kk < last[tiles][:, None, :]
+        work["walked"] += int((keep_pix & before_w).sum())
+        work["walked_inc"] += int((hit & before_w).sum())
+        work["range"] += int((keep_pix & before_l).sum())
+        used = hit & before_l
+        work["range_inc"] += int(used.sum())
+        work["fwd_visits"] += int((keep & (kk < w_max[tiles][:, None, :]))
+                                  .sum())
+        work["bwd_visits"] += int((keep & (kk < l_max[tiles][:, None, :]))
+                                  .sum())
         reached[gid[idx][used.any(dim=-1)]] = True
-    return {"walked": int(walked.sum()), "walked_inc": walked_inc,
-            "range": int(last.sum()), "range_inc": range_inc,
-            "gaussians_reached": int(reached.sum())}
+    # a per-tile kernel without the cull steps every warp through each
+    # record up to its deepest pixel (forward) or its tile's (backward)
+    work.update(walked_all=int(walked.sum()), range_all=int(last.sum()),
+                fwd_tile_steps=int(w_max.sum()),
+                bwd_tile_steps=int(strips * last.amax(-1).sum()),
+                gaussians_reached=int(reached.sum()))
+    return work
+
+
+def sass_loops(lib: str) -> list[dict]:
+    """The loops of each kernel in the shared library `lib`, read from
+    `cuobjdump -sass`: for every backward branch, the kernel, the loop's
+    first and last offsets, its SASS instruction count and how many of
+    those are MUFU (SFU), SHFL, LDS, LDG, STS and RED/ATOM. The count
+    includes both sides of any branch inside the loop."""
+    import re
+    from d3gs_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    loops, fn, insts = [], None, []
+
+    def flush():
+        for off, op, args in insts:
+            targets = re.findall(r"0x([0-9a-f]+)", args)
+            if not op.startswith("BRA") or not targets:
+                continue
+            target = int(targets[-1], 16)
+            if target > off:
+                continue
+            body = [o for a, o, _ in insts if target <= a <= off]
+            loops.append({"kernel": fn, "first": hex(target),
+                          "last": hex(off), "instructions": len(body),
+                          **{cls: sum(o.startswith(cls) for o in body)
+                             for cls in ("MUFU", "SHFL", "LDS", "LDG",
+                                         "STS", "RED", "ATOM")}})
+
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            flush()
+            fn, insts = m.group(1), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and fn:
+            code = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+            insts.append((int(m.group(1), 16), code.split()[0], code))
+    flush()
+    return loops
+
+
+def issue_model(src: str, loops: list[dict], visits: int) -> dict:
+    """The issue-rate model of one blend kernel, `src` its source: its walk
+    loop (the smallest loop with an SFU instruction, in the kernel's
+    photometric instantiation) has `instructions` SASS instructions per
+    iteration and one iteration visits `group` records for a warp (the
+    source's kGroup, else 1); `visits` (warp, record) visits at 4
+    instructions per clock per SM on 132 SMs take `ms`."""
+    import re
+    kernel = os.path.basename(src)[:-3]
+    found = re.search(r"constexpr int kGroup = (\d+);", open(src).read())
+    group = int(found[1]) if found else 1
+    mine = [lp for lp in loops if lp["MUFU"] > 0
+            and f"{kernel}_kernel" in lp["kernel"]
+            and (kernel == "blend_fwd" or "Lb0E" in lp["kernel"])]
+    loop = min(mine, key=lambda lp: lp["instructions"])
+    per_visit = loop["instructions"] / group
+    return {"loop": loop, "group": group, "per_visit": per_visit,
+            "visits": visits, "ms": visits * per_visit / ISSUE_PER_S * 1e3}
+
+
+def build_elsewhere(src_dir: str, out_dir: str) -> dict:
+    """`--before DIR`: the blend kernels of another tree (DIR/blend_fwd.cu,
+    DIR/blend_bwd.cu, e.g. an earlier commit's csrc/), built with this
+    port's nvcc flags into `out_dir`; -> {name: (source, loops)}."""
+    from d3gs_tpu_torch.ops import _build
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for name in ("blend_fwd", "blend_bwd"):
+        src = os.path.join(src_dir, f"{name}.cu")
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                       check=True, capture_output=True, timeout=600)
+        out[name] = (src, sass_loops(lib))
+    return out
+
+
+def blend_bounds(records, bins, grid, work) -> dict:
+    """Phase 6: the roofline bound of each blend kernel on this scene from
+    the pairs it evaluates (`blend_work`), under the new count (culled
+    pairs, this source's operations) and without the cull (every pair
+    before n_walked / last_contrib; the log-space backward's 46 operations,
+    log1p and exp per included pair). Bytes: the 10 record fields of every
+    row, gid and the tile starts in; the forward writes 9 words per pixel,
+    the backward reads 6 (T_final, last_contrib, the image and alpha
+    cotangents) and writes the (N, 16) gradient."""
+    n_rows, m = records.shape[0], int(bins.starts[-1])
+    pixels = grid["width"] * grid["height"]
+    inputs = (n_rows * 10 + m + grid["tiles_x"] * grid["tiles_y"] + 1) * 4
+    fwd_bytes = inputs + pixels * 9 * 4
+    bwd_bytes = inputs + pixels * 6 * 4 + n_rows * 16 * 4
+    w, out = work, {}
+    for count, pairs, bwd_inc in (
+            ("new", "", (BWD_INC_FLOPS, BWD_INC_SFU)),
+            ("uncull", "_all", BWD_INC_LOG_T)):
+        out[count] = {
+            "blend_fwd": roofline(
+                fwd_bytes, w["walked" + pairs] * PAIR_FLOPS
+                + w["walked_inc"] * FWD_INC_FLOPS,
+                w["walked" + pairs] * PAIR_SFU
+                + w["walked_inc"] * FWD_INC_SFU),
+            "blend_bwd": roofline(
+                bwd_bytes, w["range" + pairs] * PAIR_FLOPS
+                + w["range_inc"] * bwd_inc[0],
+                w["range" + pairs] * PAIR_SFU + w["range_inc"] * bwd_inc[1])}
+    return out
 
 
 def render_main_path(dev, data, mp) -> dict:
@@ -737,9 +998,40 @@ def flagship_main_path(dev, data, mp) -> dict:
     return launches
 
 
+def blend_kernel_times(records, bins, bg, grid) -> dict:
+    """Phase 5: both blend kernels alone on one scene, launched into
+    preallocated outputs (so the wrappers' host work, checks and
+    allocation, is not in the time; the backward accumulating into one
+    buffer zeroed once, with the trainers' depth_grad=False and again with
+    depth): CUDA events around back-to-back launches (`*_ms`) and
+    torch.profiler's device time per launch (`*_device_ms`)."""
+    from d3gs_tpu_torch.ops import blend as B
+    gid = B.sorted_gids(bins)
+    tiles = dict(tiles_x=grid["tiles_x"], tiles_y=grid["tiles_y"])
+    out = B.blend_forward_cuda(records, bins, bg, **grid, gid=gid)
+    g_img, g_dep, g_alp = blend_loss_grads(out)
+    buf = torch.zeros((records.shape[0], 16), device=records.device)
+
+    def fwd():
+        B.launch(records, gid, bins.starts, bg, out, **tiles)
+
+    def bwd(depth_grad=False):
+        B.launch_bwd(records, gid, bins.starts, bg, out, g_img, g_dep, g_alp,
+                     buf, **tiles, depth_grad=depth_grad)
+
+    def device_ms(fn):
+        return profile(fn, calls=50, top=2)["device_ms_per_call"]
+    return {"blend_fwd_ms": cuda_ms(fwd, 200),
+            "blend_fwd_device_ms": device_ms(fwd),
+            "blend_bwd_ms": cuda_ms(bwd, 100),
+            "blend_bwd_device_ms": device_ms(bwd),
+            "blend_bwd_depth_ms": cuda_ms(lambda: bwd(True), 100)}
+
+
 def render_timings(state, field, cam, bg, records, bins, grid):
     """Phase 5, render side: the stages of one frame at the bench shape
-    (CUDA events) and a torch.profiler pass over frames."""
+    (CUDA events), both blend kernels alone on the bench scene, and a
+    torch.profiler pass over frames."""
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.ops.binning import bin_splats_records
@@ -767,10 +1059,6 @@ def render_timings(state, field, cam, bg, records, bins, grid):
             "sh_projection_ms": cuda_ms(sh_proj, 20),
             "binning_ms": cuda_ms(lambda: bin_splats_records(
                 splats, tiles_x=25, tiles_y=25), 20),
-            # the kernel alone: launches into preallocated outputs, so the
-            # wrapper's host work (checks, allocation) is not in the time
-            "blend_kernel_ms": cuda_ms(lambda: B.launch(
-                records, bins, bg, out, tiles_x=25, tiles_y=25), 200),
             "blend_wrapper_ms": cuda_ms(lambda: B.blend_forward_cuda(
                 records, bins, bg, **grid), 50),
             "blend_plain_ms": cuda_ms(lambda: B.blend_forward_torch(
@@ -779,6 +1067,7 @@ def render_timings(state, field, cam, bg, records, bins, grid):
         }
         prof = profile(lambda: render_at(st, field, cam, bg))
     t["fps"] = 1000.0 / t["frame_ms"]
+    t["kernels"] = blend_kernel_times(records, bins, bg, grid)
     work = blend_work(records, bins, out, **grid)
     t.update(M=int(bins.starts[-1]), pixel_record_pairs=work,
              gaussians=N_BENCH, size=f"{WIDTH}x{HEIGHT}")
@@ -788,8 +1077,9 @@ def render_timings(state, field, cam, bg, records, bins, grid):
 def train_timings(dev, state, cam, bg, records, bins, grid):
     """Phase 5, train side, at the bench shape with every SH band active
     (bench.py:50-54): one deform-phase train step, its layers one by one,
-    the backward kernel alone, through its wrapper and in its plain
-    version (CUDA events), and a torch.profiler pass over train steps."""
+    the backward kernel through its wrapper and in its plain version (CUDA
+    events), both blend kernels alone on the step's own scene, and a
+    torch.profiler pass over train steps."""
     import dataclasses
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch.models import gaussians as G
@@ -867,7 +1157,6 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
     fwd = B.blend_forward_cuda(records, bins, bg, **grid)
     g_img, g_dep, g_alp = blend_loss_grads(fwd)
     bwd_args = (records, bins, bg, fwd, g_img, g_dep, g_alp)
-    grad_buf = torch.zeros((records.shape[0], 16), device=dev)
     t = {
         "train_step_ms": cuda_ms(train_step, 10),
         "deform_mlp_fwd_bwd_ms": cuda_ms(mlp_fwd_bwd, 10),
@@ -876,14 +1165,6 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
         "adams_ms": cuda_ms(adams, 10),
         "densify_ms": cuda_ms(lambda: densify(dense_state, cpu_gen, 20.0,
                                               4.0), 5),
-        # the kernel alone, accumulating into one preallocated buffer
-        # zeroed once (the trainer's depth_grad=False)
-        "blend_bwd_kernel_ms": cuda_ms(lambda: B.launch_bwd(
-            *bwd_args, grad_buf, tiles_x=grid["tiles_x"],
-            tiles_y=grid["tiles_y"], depth_grad=False), 100),
-        "blend_bwd_kernel_depth_ms": cuda_ms(lambda: B.launch_bwd(
-            *bwd_args, grad_buf, tiles_x=grid["tiles_x"],
-            tiles_y=grid["tiles_y"], depth_grad=True), 100),
         "blend_bwd_wrapper_ms": cuda_ms(lambda: B.blend_backward_cuda(
             *bwd_args, **grid, depth_grad=False), 50),
         "blend_bwd_plain_ms": cuda_ms(lambda: B.blend_backward_torch(
@@ -891,11 +1172,9 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
     }
     t["train_mrays_per_s"] = WIDTH * HEIGHT / t["train_step_ms"] / 1e3
     # the scene the step renders (its own MLP weights, as the timed steps
-    # left them): the backward kernel's work there, and the kernel alone
+    # left them): the blend kernels' work there, and the kernels alone
     rec_s, bins_s, _ = stages(state, cam, field, bg)
     fwd_s = B.blend_forward_cuda(rec_s, bins_s, bg, **grid)
-    bwd_s = (rec_s, bins_s, bg, fwd_s, *blend_loss_grads(fwd_s))
-    buf_s = torch.zeros((rec_s.shape[0], 16), device=dev)
     st1 = step(state, dstate, cam, 5000, None, bg)[0]
     g1 = st1.grad_accum[st1.denom > 0]
     t["step_scene"] = {
@@ -907,9 +1186,7 @@ def train_timings(dev, state, cam, bg, records, bins, grid):
         "visible": int(g1.numel()),
         "nonzero_screen_grad": int((g1 > 0).sum()),
         "pixel_record_pairs": blend_work(rec_s, bins_s, fwd_s, **grid),
-        "blend_bwd_kernel_ms": cuda_ms(lambda: B.launch_bwd(
-            *bwd_s, buf_s, tiles_x=grid["tiles_x"], tiles_y=grid["tiles_y"],
-            depth_grad=False), 100)}
+        "kernels": blend_kernel_times(rec_s, bins_s, bg, grid)}
     return t, profile(train_step, calls=5)
 
 
@@ -1073,7 +1350,11 @@ def flagship_timings(dev, state, bg) -> tuple[dict, dict]:
     return out, prof
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """`--before DIR`: also the SASS loops and issue-rate model of the
+    blend kernels in DIR (another tree's csrc/), for comparison."""
+    argv = sys.argv[1:] if argv is None else argv
+    before_dir = argv[1] if argv[:1] == ["--before"] else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
@@ -1105,6 +1386,18 @@ def main() -> int:
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"[2] {name}: {line}")
+    loops = {k: sass_loops(str(_build.library_path(k)))
+             for k in ("blend_fwd", "blend_bwd")}
+    for k, lps in loops.items():
+        for lp in lps:
+            log(f"[2] {k} SASS loop: {json.dumps(lp)}")
+    before = {}
+    if before_dir:
+        before = build_elsewhere(before_dir,
+                                 str(_build.BUILD_DIR / "before"))
+        for k, (_, lps) in before.items():
+            for lp in lps:
+                log(f"[2] {before_dir} {k} SASS loop: {json.dumps(lp)}")
 
     # ---- 3. kernels vs plain --------------------------------------------
     params, alive = bench_params(dev)
@@ -1114,6 +1407,7 @@ def main() -> int:
                                                 is_blender=True), device=dev)
     bg = torch.zeros(3, device=dev)
     records, bins, grid = stages(state, cam, field, bg)
+    check_log1p(dev)
     bench = f"bench scene {N_BENCH} @ {WIDTH}x{HEIGHT}"
     bench_err = compare_blend(bench, records, bins, bg, grid)
     bench_bwd_err = compare_blend_bwd(bench, records, bins, bg, grid,
@@ -1123,6 +1417,15 @@ def main() -> int:
         rec_s, bins_s, _ = stages(st, look_from_z(z, 64, dev), None, bgs, dup)
         compare_blend(name, rec_s, bins_s, bgs, small)
         compare_blend_bwd(name, rec_s, bins_s, bgs, small, BWD_TOL[name])
+    # the per-warp design's edges: ~30 chunks of one strip's walk, and
+    # ellipses that end on the boundaries of its cull
+    bg1 = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    edges = [("deep", *stages(deep_scene(dev), look_from_z(4.0, 64, dev),
+                              None, bg1)[:2]),
+             ("warp_edge", *warp_edge_scene(dev))]
+    for name, rec_s, bins_s in edges:
+        compare_blend(name, rec_s, bins_s, bg1, small)
+        compare_blend_bwd(name, rec_s, bins_s, bg1, small, BWD_TOL[name])
     # ---- 3c. the row kernels vs plain at the tools' shapes ---------------
     rows_in = row_inputs(dev)
     row_errs = compare_rows(rows_in)
@@ -1165,36 +1468,37 @@ def main() -> int:
     log("[5] flagship steps: " + json.dumps(ft))
     log("[5] profile of one flagship ODE step: " + json.dumps(fprof))
 
-    n_rows, m = records.shape[0], int(bins.starts[-1])
-    index_bytes = n_rows * 4 + m * 4 + (grid["tiles_x"] * grid["tiles_y"]
-                                        + 1) * 4
-    # forward: 10 record fields in, 9 words per pixel out
-    fwd_bound, fwd_by = roofline(
-        n_rows * 10 * 4 + index_bytes + WIDTH * HEIGHT * 9 * 4,
-        work["walked"] * PAIR_FLOPS + work["walked_inc"] * FWD_INC_FLOPS,
-        work["walked"] * PAIR_SFU + work["walked_inc"] * FWD_INC_SFU)
-    # backward: 10 record fields and 7 words per pixel in (log T, T_final,
-    # last_contrib, image 3, alpha; no depth), the (N, 16) gradient out
-    bwd_bound, bwd_by = roofline(
-        n_rows * 10 * 4 + index_bytes + WIDTH * HEIGHT * 7 * 4
-        + n_rows * 16 * 4,
-        work["range"] * PAIR_FLOPS + work["range_inc"] * BWD_INC_FLOPS,
-        work["range"] * PAIR_SFU + work["range_inc"] * BWD_INC_SFU)
-    log(f"[6] bounds: blend_fwd {fwd_bound:.5f} ms ({fwd_by}), blend_bwd "
-        f"{bwd_bound:.5f} ms ({bwd_by}) from the pairs {work}")
+    bounds = blend_bounds(records, bins, grid, work)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = (
+        bounds["new"]["blend_fwd"], bounds["new"]["blend_bwd"])
+    log(f"[6] bounds on the bench scene (ms, what bounds it): {bounds} "
+        f"from the pairs {work}")
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "d3gs_tpu_torch", "csrc")
+    models = {k: issue_model(os.path.join(csrc, f"{k}.cu"), loops[k],
+                             work[f"{k[6:]}_visits"])
+              for k in ("blend_fwd", "blend_bwd")}
+    log(f"[6] issue-rate model on the bench scene: {json.dumps(models)}")
+    if before:
+        # the earlier kernels stepped through every record of the range
+        models = {k: issue_model(src, lps, work[f"{k[6:]}_tile_steps"])
+                  for k, (src, lps) in before.items()}
+        log(f"[6] issue-rate model of {before_dir}'s kernels on the bench "
+            f"scene: {json.dumps(models)}")
+    kb = t["kernels"]
     kernels = [{
         "name": "blend_fwd", "route": "cuda",
         "source": "d3gs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "d3gs_tpu/ops/pallas_blend.py:188",
         "launches": launches["blend_fwd"], "max_abs_err": bench_err,
-        "ms": t["blend_kernel_ms"], "plain_ms": t["blend_plain_ms"],
+        "ms": kb["blend_fwd_ms"], "plain_ms": t["blend_plain_ms"],
         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
     }, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d3gs_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "d3gs_tpu/ops/pallas_blend.py:277",
         "launches": launches["blend_bwd"], "max_abs_err": bench_bwd_err,
-        "ms": tt["blend_bwd_kernel_ms"], "plain_ms": tt["blend_bwd_plain_ms"],
+        "ms": kb["blend_bwd_ms"], "plain_ms": tt["blend_bwd_plain_ms"],
         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
     }] + [{
         "name": name, "route": "cuda",

@@ -28,7 +28,10 @@ into the (N, 16) gradient of the records in the original Gaussian order
 `blend_records` (autograd through `BlendFunction`) runs the hand-written
 kernels (`csrc/blend_fwd.cu`, `csrc/blend_bwd.cu`) for CUDA tensors and the
 plain PyTorch versions, `blend_forward_torch` and `blend_backward_torch`,
-for CPU tensors. It never falls back from one to the other.
+for CPU tensors. It never falls back from one to the other. Both kernels
+read each duplicate's Gaussian from `sorted_gids` (order[rank_sorted]),
+which `BlendFunction` computes once for the pair, and skip, per 16x2
+pixel strip, the records that `warp_rows_hit` rules out.
 """
 from __future__ import annotations
 
@@ -52,6 +55,42 @@ T_EPS = 1e-4
 # plain versions do not count
 launches = 0
 launches_bwd = 0
+
+
+def sorted_gids(bins: RecordBins) -> torch.Tensor:
+    """(M,) int32 Gaussian id of each sorted duplicate: order[rank_sorted],
+    the gather both kernels would otherwise repeat per record."""
+    return bins.order[bins.rank_sorted.long()]
+
+
+def warp_rows_hit(rec: torch.Tensor, x0, y0) -> torch.Tensor:
+    """The kernels' per-warp cull (`csrc/blend_common.cuh::rows_hit`) in
+    f32 PyTorch. For records `rec` (..., >= 9 fields) and 16x2 pixel
+    strips with top-left pixel (x0, y0) (tensors or numbers broadcasting
+    against rec[..., 0]): False only where the record's alpha, as the
+    kernels evaluate it, is below 1/255 at every pixel x0..x0+15 of rows
+    y0 and y0 + 1. alpha >= 1/255 means Q = a dx² + 2b dx dy + c dy² <=
+    tau = 2 ln(255 opa), on each row an interval of x; tau is widened for
+    the rounding of Q (which grows with the conic's condition number,
+    bounded by (a + c)² / det) and the interval by 1e-2 px plus 1e-5 of
+    its coordinates. Not an ellipse, or NaN: True."""
+    mx, my, a, b, c, opa = (rec[..., i] for i in (0, 1, 2, 3, 4, 8))
+    det = a * c - b * b
+    inv_a = 1.0 / a
+    cond = (a + c) * (a + c) / det
+    tau = (2.0 * torch.log(opa / ALPHA_MIN) * (1.0 + 1e-5 + 1e-6 * cond)
+           + 1e-4)
+    hit = torch.zeros_like(mx, dtype=torch.bool)
+    for row in (0, 1):
+        dy = my - (y0 + row)
+        d = tau - det * dy * dy * inv_a
+        half = torch.sqrt(d * inv_a)
+        cx = mx + b * dy * inv_a
+        m = 1e-2 + 1e-5 * (cx.abs() + half)
+        hit = hit | (~(d < 0.0) & ~(cx + half + m < x0)
+                     & ~(cx - half - m > x0 + 15.0))
+    ellipse = (a > 0.0) & (det > 0.0)
+    return ~(opa < ALPHA_MIN) & (hit | ~ellipse)
 
 
 class BlendOutput(NamedTuple):
@@ -88,36 +127,40 @@ class BlendFunction(torch.autograd.Function):
                 depth_grad):
         grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width,
                     height=height)
-        out = blend_forward(records, bins, bg, **grid)
-        ctx.save_for_backward(records, bg, out.t_final, out.log_t,
-                              out.last_contrib)
-        ctx.bins, ctx.grid, ctx.depth_grad = bins, grid, depth_grad
+        # one gather of the duplicates' Gaussian ids serves both kernels
+        gid = sorted_gids(bins) if records.is_cuda else None
+        out = blend_forward(records, bins, bg, gid=gid, **grid)
+        ctx.save_for_backward(records, bg, out.t_final, out.last_contrib)
+        ctx.bins, ctx.gid, ctx.grid = bins, gid, grid
+        ctx.depth_grad = depth_grad
         return out.image, out.depth, out.alpha
 
     @staticmethod
     def backward(ctx, g_image, g_depth, g_alpha):
         # autograd hands zeros for an output the loss does not use, and may
         # hand expanded (stride-0) gradients, hence .contiguous()
-        records, bg, t_final, log_t, last_contrib = ctx.saved_tensors
+        records, bg, t_final, last_contrib = ctx.saved_tensors
         fwd = BlendOutput(image=None, depth=None, alpha=None,
-                          t_final=t_final, log_t=log_t, n_walked=None,
+                          t_final=t_final, log_t=None, n_walked=None,
                           last_contrib=last_contrib)
         g_rec = blend_backward(
             records, ctx.bins, bg, fwd, g_image.contiguous(),
             g_depth.contiguous(), g_alpha.contiguous(),
-            depth_grad=ctx.depth_grad, **ctx.grid)
+            depth_grad=ctx.depth_grad, gid=ctx.gid, **ctx.grid)
         g_bg = (g_image * t_final[..., None]).sum(dim=(0, 1))
         return g_rec, g_bg, None, None, None, None, None, None
 
 
 def blend_forward(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
-                  *, tiles_x: int, tiles_y: int, width: int,
-                  height: int) -> BlendOutput:
+                  *, tiles_x: int, tiles_y: int, width: int, height: int,
+                  gid: torch.Tensor | None = None) -> BlendOutput:
     """The full forward: the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors."""
+    on CPU tensors. `gid`: `sorted_gids(bins)` if the caller has it (the
+    kernel's input; the plain version gathers its own)."""
     if records.is_cuda:
         return blend_forward_cuda(records, bins, bg, tiles_x=tiles_x,
-                                  tiles_y=tiles_y, width=width, height=height)
+                                  tiles_y=tiles_y, width=width, height=height,
+                                  gid=gid)
     if records.device.type == "cpu":
         return blend_forward_torch(records, bins, bg, tiles_x=tiles_x,
                                    tiles_y=tiles_y, width=width, height=height)
@@ -210,14 +253,15 @@ def blend_backward(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
                    fwd: BlendOutput, g_image: torch.Tensor,
                    g_depth: torch.Tensor, g_alpha: torch.Tensor, *,
                    tiles_x: int, tiles_y: int, width: int, height: int,
-                   depth_grad: bool = True) -> torch.Tensor:
+                   depth_grad: bool = True,
+                   gid: torch.Tensor | None = None) -> torch.Tensor:
     """Gradient of the (N, 16) records: the CUDA kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+    the plain version on CPU tensors (`gid` as in `blend_forward`)."""
     args = (records, bins, bg, fwd, g_image, g_depth, g_alpha)
     grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width,
                 height=height, depth_grad=depth_grad)
     if records.is_cuda:
-        return blend_backward_cuda(*args, **grid)
+        return blend_backward_cuda(*args, **grid, gid=gid)
     if records.device.type == "cpu":
         return blend_backward_torch(*args, **grid)
     raise ValueError(f"blend: unsupported device {records.device}")
@@ -304,14 +348,14 @@ def blend_backward_torch(records: torch.Tensor, bins: RecordBins,
 
 
 _FWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
-                 + [ctypes.c_void_p] * 4              # order, rank, starts, bg
+                 + [ctypes.c_void_p] * 3              # gid, starts, bg
                  + [ctypes.c_int] * 4                 # tiles_x/y, width, height
                  + [ctypes.c_void_p] * 7              # outputs
                  + [ctypes.c_void_p])                 # stream
 _BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
-                 + [ctypes.c_void_p] * 4              # order, rank, starts, bg
+                 + [ctypes.c_void_p] * 3              # gid, starts, bg
                  + [ctypes.c_int] * 4                 # tiles_x/y, width, height
-                 + [ctypes.c_void_p] * 3              # log_t, t_final, last
+                 + [ctypes.c_void_p] * 2              # t_final, last
                  + [ctypes.c_void_p] * 3              # g_image, g_depth, g_alpha
                  + [ctypes.c_int]                     # depth_grad
                  + [ctypes.c_void_p, ctypes.c_int]    # grad, row stride
@@ -327,26 +371,35 @@ def _check(name, t, dtype, shape, device):
                          f"expected {shape}")
 
 
-def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height):
+def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height, gid):
+    """Checks the kernels' inputs; returns `gid`, gathered if None."""
     dev = records.device
     n = records.shape[0]
     if not (0 < width <= tiles_x * TILE and 0 < height <= tiles_y * TILE):
         raise ValueError("blend: image size does not match the tile grid")
+    # (n, 16) contiguous: each row is 64-byte aligned for the 16-byte loads
     _check("records", records, torch.float32, (n, RECORD_WIDTH), dev)
     _check("order", bins.order, torch.int32, (n,), dev)
     _check("rank_sorted", bins.rank_sorted, torch.int32,
            (bins.rank_sorted.shape[0],), dev)
     _check("starts", bins.starts, torch.int32, (tiles_x * tiles_y + 1,), dev)
     _check("bg", bg, torch.float32, (3,), dev)
+    if gid is None:
+        gid = sorted_gids(bins)
+    _check("gid", gid, torch.int32, (bins.rank_sorted.shape[0],), dev)
+    return gid
 
 
 def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
                        bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
-                       width: int, height: int) -> BlendOutput:
+                       width: int, height: int,
+                       gid: torch.Tensor | None = None) -> BlendOutput:
     """Launch `csrc/blend_fwd.cu` on the current stream; raises if the
-    kernel cannot be built or launched."""
+    kernel cannot be built or launched. `gid`: `sorted_gids(bins)`,
+    gathered here if None."""
     global launches
-    _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height)
+    gid = _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height,
+                        gid)
     dev = records.device
     image = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     depth, alpha, t_final, log_t = (
@@ -357,12 +410,13 @@ def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
     out = BlendOutput(image=image, depth=depth, alpha=alpha,
                       t_final=t_final, log_t=log_t, n_walked=walked,
                       last_contrib=last)
-    launch(records, bins, bg, out, tiles_x=tiles_x, tiles_y=tiles_y)
+    launch(records, gid, bins.starts, bg, out, tiles_x=tiles_x,
+           tiles_y=tiles_y)
     launches += 1
     return out
 
 
-def launch(records, bins, bg, out: BlendOutput, *, tiles_x: int,
+def launch(records, gid, starts, bg, out: BlendOutput, *, tiles_x: int,
            tiles_y: int) -> None:
     """One launch of the forward kernel into preallocated outputs, without
     the checks of `blend_forward_cuda` (which calls it) and uncounted."""
@@ -370,12 +424,12 @@ def launch(records, bins, bg, out: BlendOutput, *, tiles_x: int,
     dev = records.device
     with torch.cuda.device(dev):
         err = _build.entry("blend_fwd", _FWD_ARGTYPES)(
-            records.data_ptr(), records.stride(0), bins.order.data_ptr(),
-            bins.rank_sorted.data_ptr(), bins.starts.data_ptr(),
-            bg.data_ptr(), tiles_x, tiles_y, width, height,
-            out.image.data_ptr(), out.depth.data_ptr(), out.alpha.data_ptr(),
-            out.t_final.data_ptr(), out.log_t.data_ptr(),
-            out.n_walked.data_ptr(), out.last_contrib.data_ptr(),
+            records.data_ptr(), records.stride(0), gid.data_ptr(),
+            starts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, width,
+            height, out.image.data_ptr(), out.depth.data_ptr(),
+            out.alpha.data_ptr(), out.t_final.data_ptr(),
+            out.log_t.data_ptr(), out.n_walked.data_ptr(),
+            out.last_contrib.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
@@ -385,44 +439,45 @@ def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
                         bg: torch.Tensor, fwd: BlendOutput,
                         g_image: torch.Tensor, g_depth: torch.Tensor,
                         g_alpha: torch.Tensor, *, tiles_x: int, tiles_y: int,
-                        width: int, height: int,
-                        depth_grad: bool = True) -> torch.Tensor:
+                        width: int, height: int, depth_grad: bool = True,
+                        gid: torch.Tensor | None = None) -> torch.Tensor:
     """Launch `csrc/blend_bwd.cu` on the current stream into a zeroed
-    (N, 16) gradient; raises if the kernel cannot be built or launched."""
+    (N, 16) gradient; raises if the kernel cannot be built or launched.
+    It reads the forward's t_final and last_contrib; `gid` as in
+    `blend_forward_cuda`."""
     global launches_bwd
-    _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height)
+    gid = _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height,
+                        gid)
     dev = records.device
-    for name, t in (("t_final", fwd.t_final), ("log_t", fwd.log_t),
-                    ("g_depth", g_depth), ("g_alpha", g_alpha)):
+    for name, t in (("t_final", fwd.t_final), ("g_depth", g_depth),
+                    ("g_alpha", g_alpha)):
         _check(name, t, torch.float32, (height, width), dev)
     _check("last_contrib", fwd.last_contrib, torch.int32, (height, width),
            dev)
     _check("g_image", g_image, torch.float32, (height, width, 3), dev)
     grad = torch.zeros((records.shape[0], RECORD_WIDTH), dtype=torch.float32,
                        device=dev)
-    launch_bwd(records, bins, bg, fwd, g_image, g_depth, g_alpha, grad,
-               tiles_x=tiles_x, tiles_y=tiles_y, depth_grad=depth_grad)
+    launch_bwd(records, gid, bins.starts, bg, fwd, g_image, g_depth, g_alpha,
+               grad, tiles_x=tiles_x, tiles_y=tiles_y, depth_grad=depth_grad)
     launches_bwd += 1
     return grad
 
 
-def launch_bwd(records, bins, bg, fwd: BlendOutput, g_image, g_depth,
+def launch_bwd(records, gid, starts, bg, fwd: BlendOutput, g_image, g_depth,
                g_alpha, grad, *, tiles_x: int, tiles_y: int,
                depth_grad: bool) -> None:
     """One launch of the backward kernel, accumulating into `grad` (which
     the caller zeroes), without the checks of `blend_backward_cuda` (which
     calls it) and uncounted."""
-    height, width = fwd.log_t.shape
+    height, width = fwd.t_final.shape
     dev = records.device
     with torch.cuda.device(dev):
         err = _build.entry("blend_bwd", _BWD_ARGTYPES)(
-            records.data_ptr(), records.stride(0), bins.order.data_ptr(),
-            bins.rank_sorted.data_ptr(), bins.starts.data_ptr(),
-            bg.data_ptr(), tiles_x, tiles_y, width, height,
-            fwd.log_t.data_ptr(), fwd.t_final.data_ptr(),
-            fwd.last_contrib.data_ptr(), g_image.data_ptr(),
-            g_depth.data_ptr(), g_alpha.data_ptr(), int(depth_grad),
-            grad.data_ptr(), grad.stride(0),
+            records.data_ptr(), records.stride(0), gid.data_ptr(),
+            starts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, width,
+            height, fwd.t_final.data_ptr(), fwd.last_contrib.data_ptr(),
+            g_image.data_ptr(), g_depth.data_ptr(), g_alpha.data_ptr(),
+            int(depth_grad), grad.data_ptr(), grad.stride(0),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")
