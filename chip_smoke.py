@@ -4,14 +4,18 @@
 
 Phases (any failure exits non-zero):
   1. device: card name and power limit, the TF32 flags (both must be off);
-  2. build: every CUDA kernel of the port, compiled from csrc/ with nvcc,
-     one process per source, all started together, with ptxas's report
+  2. build: every CUDA kernel of the port and the blend checks, compiled
+     from csrc/ with nvcc (its release printed), one process per source,
+     all started together, with ptxas's report
      (registers, shared memory, spills); the loops of both blend kernels
      read from `cuobjdump -sass` (instructions, SFU, shuffles, atomics);
-  3. each kernel against its plain PyTorch version on the card: the forward
-     kernel's log1p against the library's log1pf on every f32 alpha in
-     (0, 0.99]; the blend kernels on the bench scene (bench.py's recipe:
-     43,132 Gaussians, 400x400, SH degree 3, the 8x256 Blender deform MLP
+  3. each kernel against its plain PyTorch version on the card: first two
+     checks of csrc/blend_checks.cu, the blend kernels' per-warp cull
+     against their own alpha on 12,000 records whose ellipses end within
+     1e-3 px of strip and tile edges, and the forward's log1p against the
+     library's log1pf on every f32 alpha in (0, 0.99]; then the blend
+     kernels on the bench scene
+     (bench.py's recipe: 43,132 Gaussians, 400x400, SH degree 3, the 8x256 Blender deform MLP
      at t=0.5), the small blend scenes of tests/test_pallas_blend.py and
      two scenes at the per-warp design's edges (`deep`: 3,000 stacked
      Gaussians of opacity 0.01, pixels that include ~900 records;
@@ -90,7 +94,10 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # quadratic, the opacity product: 12 f32 operations) and one exp. Only a
 # pair whose alpha reaches 1/255 (an included one) goes on:
 #   csrc/blend_fwd.cu: clamp, log T update, include test, w, 4
-#     accumulations: 11 ops, log1p and exp;
+#     accumulations (11 ops), log1p (`log1p_neg`, the library log1pf's
+#     normal path: an argument reduction and a polynomial, 15 f32
+#     operations and no SFU instruction; its 5 integer and conversion
+#     operations are not counted) and the exp of log T: 26 ops and one exp;
 #   csrc/blend_bwd.cu (depth_grad=False): clamp, 1 - alpha, T_before, w,
 #     g·rgb (5), g_alpha (4), the suffix (2), g_power, the 9 partials (17)
 #     and their 9-way sum over pixels: 42 ops and one reciprocal.
@@ -99,7 +106,7 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # pair before n_walked / last_contrib (no cull), is printed beside the new
 # one.
 PAIR_FLOPS, PAIR_SFU = 12, 1
-FWD_INC_FLOPS, FWD_INC_SFU = 11, 2
+FWD_INC_FLOPS, FWD_INC_SFU = 26, 1
 BWD_INC_FLOPS, BWD_INC_SFU = 42, 1
 BWD_INC_LOG_T = (46, 2)
 # the issue-rate model: 4 warp schedulers per SM, one instruction each per
@@ -306,8 +313,9 @@ def warp_edge_scene(dev, n: int = 600, size: int = 64):
     tau = 2.0 * np.log(255.0 * opa)
     hx, hy = np.sqrt(tau * sxx), np.sqrt(tau * syy)
     # off the edge by at least 0.02 px either way: a pixel within rounding
-    # of alpha = 1/255 flips between any two f32 evaluations (the cull's
-    # own margins are tested to the ulp by tests/test_torch_port_blend_cull)
+    # of alpha = 1/255 flips between any two f32 evaluations, the kernel's
+    # and the plain version's (`check_cull` probes the cull itself within
+    # 1e-3 px of the edges, against the kernels' own alpha)
     delta = rng.choice([-0.3, -0.05, -0.02, 0.02, 0.05, 0.3], n)
     side = rng.integers(0, 4, n)
     row = 2 * rng.integers(0, size // 2, n) + 1       # a strip's last row
@@ -406,13 +414,84 @@ def compare_blend(name, records, bins, bg, grid) -> float:
     return worst
 
 
-def check_log1p(dev) -> int:
-    """Phase 3: the forward kernel's branch-free log1p against the CUDA
-    library's log1pf, bit for bit, on every f32 alpha in (0, 0.99] (the
-    check kernel of csrc/blend_fwd.cu); raises on any mismatch."""
+def cull_edge_records(seed: int, n: int = 4000) -> np.ndarray:
+    """(n, 16) f32 records around a 64x64 image, at the per-warp cull's
+    edges: anisotropic conics (σ 0.3-60 px at any angle), opacities within
+    1e-6..2 % above 1/255 for half of them, and one extreme point of each
+    1/255 ellipse on an integer pixel of a strip's last row (or a tile's
+    last column) within ±1e-3 px. tests/test_torch_port_blend_cull.py holds
+    `blend.warp_rows_hit` to the same records."""
+    alpha_min = np.float64(np.float32(1.0 / 255.0))
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, np.pi, n)
+    sl = np.exp(rng.uniform(np.log(0.5), np.log(60.0), n))
+    ss = np.exp(rng.uniform(np.log(0.3), np.log(4.0), n))
+    opa = np.where(rng.random(n) < 0.5,
+                   alpha_min * (1 + np.exp(rng.uniform(np.log(1e-6),
+                                                       np.log(2e-2), n))),
+                   rng.uniform(0.01, 1.0, n))
+    co, si = np.cos(th), np.sin(th)
+    sxx = co * co * sl * sl + si * si * ss * ss
+    syy = si * si * sl * sl + co * co * ss * ss
+    sxy = co * si * (sl * sl - ss * ss)
+    det = sxx * syy - sxy * sxy
+    tau = 2 * np.log(opa / alpha_min)
+    hx, hy = np.sqrt(tau * sxx), np.sqrt(tau * syy)
+    delta = rng.uniform(-1e-3, 1e-3, n)
+    at = rng.integers(0, 64, n)
+    ycase = rng.random(n) < 0.5
+    # bottom of the ellipse on a strip's last row, at an integer column
+    my = np.where(ycase, 2 * rng.integers(0, 32, n) + 1 + delta - hy,
+                  at - sxy / sxx * hx)
+    mx = np.where(ycase, at - sxy / syy * hy,
+                  16 * rng.integers(0, 4, n) + 15 + delta - hx)
+    rec = np.zeros((n, 16), np.float32)
+    rec[:, 0], rec[:, 1] = mx, my
+    rec[:, 2], rec[:, 3], rec[:, 4] = syy / det, -sxy / det, sxx / det
+    rec[:, 8] = opa
+    return rec
+
+
+def check_cull(dev) -> dict:
+    """Phase 3: the blend kernels' per-warp cull (`rows_hit`) against their
+    own alpha as nvcc compiles both (csrc/blend_checks.cu), on the
+    records of `cull_edge_records` (seeds 0-2) and every 16x2 strip of a
+    64x64 image. Raises if the cull rules out a strip where a pixel reaches
+    1/255, or if no ruled-out strip comes within 10 % of 1/255 (the edges
+    went untested)."""
     import ctypes
     from d3gs_tpu_torch.ops import _build
-    fn = _build.load("blend_fwd").d3gs_blend_fwd_log1p_mismatches
+    fn = _build.load("blend_checks").d3gs_blend_cull_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rec = torch.from_numpy(np.concatenate(
+        [cull_edge_records(seed) for seed in range(3)])).to(dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    if fn(rec.data_ptr(), rec.stride(0), rec.shape[0], 64 // 16, 64 // 2,
+          counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream):
+        raise RuntimeError("cull check kernel failed to launch")
+    misses, kept, grazing = (int(c) for c in counts.cpu())
+    pairs = rec.shape[0] * (64 // 16) * (64 // 2)
+    log(f"[3] per-warp cull vs the kernels' alpha on {rec.shape[0]} edge "
+        f"records x 128 strips: {misses} strips ruled out with a pixel at "
+        f"alpha >= 1/255, {kept} of {pairs} kept, {grazing} ruled out "
+        f"within 10 % of 1/255")
+    if misses:
+        raise AssertionError(f"the cull drops {misses} visible strips")
+    if not grazing:
+        raise AssertionError("no ruled-out strip came near 1/255")
+    return {"misses": misses, "kept": kept, "grazing": grazing}
+
+
+def check_log1p(dev) -> int:
+    """Phase 3: the forward kernel's branch-free log1p (`log1p_neg`, a copy
+    of CUDA 12.9's log1pf) against this toolkit's log1pf, bit for bit, on
+    every f32 alpha in (0, 0.99] (csrc/blend_checks.cu); raises on any
+    mismatch."""
+    import ctypes
+    from d3gs_tpu_torch.ops import _build
+    fn = _build.load("blend_checks").d3gs_blend_log1p_check
     fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     if fn(count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream):
@@ -421,7 +500,8 @@ def check_log1p(dev) -> int:
     log(f"[3] log1p of the forward kernel vs log1pf over the f32 alpha in "
         f"(0, 0.99]: {bad} differ")
     if bad:
-        raise AssertionError(f"log1p differs from log1pf at {bad} inputs")
+        raise AssertionError(f"log1p_neg differs from this toolkit's log1pf "
+                             f"at {bad} inputs: copy its normal path anew")
     return bad
 
 
@@ -519,8 +599,7 @@ def blend_work(records, bins, fwd, *, tiles_x, tiles_y, width, height,
     each, the pairs whose alpha
     reaches 1/255 (`walked_inc`, `range_inc`; the cull keeps them all);
     `fwd_visits` / `bwd_visits`: the (warp, record) visits, kept records
-    before the strip's largest n_walked / last_contrib (`*_tile_steps`: the
-    warp steps of a per-tile kernel that culls nothing); and the Gaussians
+    before the strip's largest n_walked / last_contrib; and the Gaussians
     with at least one included pair in the backward's range
     (`gaussians_reached`)."""
     from d3gs_tpu_torch.ops import blend as B
@@ -571,11 +650,7 @@ def blend_work(records, bins, fwd, *, tiles_x, tiles_y, width, height,
         work["bwd_visits"] += int((keep & (kk < l_max[tiles][:, None, :]))
                                   .sum())
         reached[gid[idx][used.any(dim=-1)]] = True
-    # a per-tile kernel without the cull steps every warp through each
-    # record up to its deepest pixel (forward) or its tile's (backward)
     work.update(walked_all=int(walked.sum()), range_all=int(last.sum()),
-                fwd_tile_steps=int(w_max.sum()),
-                bwd_tile_steps=int(strips * last.amax(-1).sum()),
                 gaussians_reached=int(reached.sum()))
     return work
 
@@ -640,22 +715,6 @@ def issue_model(src: str, loops: list[dict], visits: int) -> dict:
     per_visit = loop["instructions"] / group
     return {"loop": loop, "group": group, "per_visit": per_visit,
             "visits": visits, "ms": visits * per_visit / ISSUE_PER_S * 1e3}
-
-
-def build_elsewhere(src_dir: str, out_dir: str) -> dict:
-    """`--before DIR`: the blend kernels of another tree (DIR/blend_fwd.cu,
-    DIR/blend_bwd.cu, e.g. an earlier commit's csrc/), built with this
-    port's nvcc flags into `out_dir`; -> {name: (source, loops)}."""
-    from d3gs_tpu_torch.ops import _build
-    os.makedirs(out_dir, exist_ok=True)
-    out = {}
-    for name in ("blend_fwd", "blend_bwd"):
-        src = os.path.join(src_dir, f"{name}.cu")
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                       check=True, capture_output=True, timeout=600)
-        out[name] = (src, sass_loops(lib))
-    return out
 
 
 def blend_bounds(records, bins, grid, work) -> dict:
@@ -1350,11 +1409,7 @@ def flagship_timings(dev, state, bg) -> tuple[dict, dict]:
     return out, prof
 
 
-def main(argv=None) -> int:
-    """`--before DIR`: also the SASS loops and issue-rate model of the
-    blend kernels in DIR (another tree's csrc/), for comparison."""
-    argv = sys.argv[1:] if argv is None else argv
-    before_dir = argv[1] if argv[:1] == ["--before"] else None
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
@@ -1382,7 +1437,11 @@ def main(argv=None) -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
-    log(f"[2] built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
+    release = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    release = [ln for ln in release.splitlines() if "release" in ln]
+    log(f"[2] built {_build.sources()} in {time.perf_counter() - t0:.1f} s "
+        f"by {release[-1] if release else 'nvcc'}")
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"[2] {name}: {line}")
@@ -1391,13 +1450,6 @@ def main(argv=None) -> int:
     for k, lps in loops.items():
         for lp in lps:
             log(f"[2] {k} SASS loop: {json.dumps(lp)}")
-    before = {}
-    if before_dir:
-        before = build_elsewhere(before_dir,
-                                 str(_build.BUILD_DIR / "before"))
-        for k, (_, lps) in before.items():
-            for lp in lps:
-                log(f"[2] {before_dir} {k} SASS loop: {json.dumps(lp)}")
 
     # ---- 3. kernels vs plain --------------------------------------------
     params, alive = bench_params(dev)
@@ -1407,6 +1459,7 @@ def main(argv=None) -> int:
                                                 is_blender=True), device=dev)
     bg = torch.zeros(3, device=dev)
     records, bins, grid = stages(state, cam, field, bg)
+    check_cull(dev)
     check_log1p(dev)
     bench = f"bench scene {N_BENCH} @ {WIDTH}x{HEIGHT}"
     bench_err = compare_blend(bench, records, bins, bg, grid)
@@ -1479,12 +1532,6 @@ def main(argv=None) -> int:
                              work[f"{k[6:]}_visits"])
               for k in ("blend_fwd", "blend_bwd")}
     log(f"[6] issue-rate model on the bench scene: {json.dumps(models)}")
-    if before:
-        # the earlier kernels stepped through every record of the range
-        models = {k: issue_model(src, lps, work[f"{k[6:]}_tile_steps"])
-                  for k, (src, lps) in before.items()}
-        log(f"[6] issue-rate model of {before_dir}'s kernels on the bench "
-            f"scene: {json.dumps(models)}")
     kb = t["kernels"]
     kernels = [{
         "name": "blend_fwd", "route": "cuda",

@@ -160,8 +160,7 @@ blend_bwd_kernel(const float* __restrict__ records, int record_stride,
         inv_opa[u] = q2.w;
         const float dx = q0.x - fx;
         const float dy = q0.y - fy;
-        const float power =
-            -0.5f * (q0.z * dx * dx + q1.x * dy * dy) - q0.w * dx * dy;
+        const float power = gauss_power(q0, q1, dx, dy);
         // no branch around the exp, so that a group's evaluations interleave
         const float raw = q2.x * expf(power);
         const bool ok = has && k < last && !(power > 0.0f) && raw >= kAlphaMin;

@@ -3,55 +3,58 @@
 //
 // Replaces: d3gs_tpu/ops/pallas_blend.py::_fwd_kernel (launched by
 // _fwd_pallas), the TPU kernel that walks 128-record blocks per tile with
-// MXU prefix scans. This kernel computes the same function with the
-// reference rasterizer's renderCUDA structure instead:
-//   * one 256-thread block per tile, one thread per pixel;
-//   * the tile's records [starts[t], starts[t+1]) are staged in shared
-//     memory in cooperative batches of 256, each thread gathering one record
-//     through order[rank_sorted[m]] (10 live fields of the packed row);
-//   * each pixel walks the batch in depth order with the Pallas kernel's
-//     alpha rules: power = -0.5(a dx² + c dy²) - b dx dy, skipped if
-//     power > 0; alpha = min(0.99, opa e^power), skipped if < 1/255;
-//   * each pixel carries log T (the sum of log1p(-alpha), as the TPU kernel
-//     does) and includes a record iff exp(log T after it) >= 1e-4; the first
-//     record that fails marks the pixel done. The block leaves once
-//     __syncthreads_count(done) == 256.
+// MXU prefix scans. This kernel computes the same function per pixel with
+// the Pallas kernel's alpha rules: power = -0.5(a dx² + c dy²) - b dx dy,
+// skipped if power > 0; alpha = min(0.99, opa e^power), skipped if < 1/255;
+// log T = Σ log1p(-alpha) over the included records, and a record is
+// included iff exp(log T after it) >= 1e-4 (full-precision expf and
+// log1pf, summed in list order: this decision is never approximated). The
+// first record that fails marks the pixel done.
 //
 // Per pixel it writes the image composed with bg, the expected depth,
 // alpha = 1 - T_final, T_final, log T_final, the number of records walked
 // (the failing record included) and, for the backward (csrc/blend_bwd.cu),
 // last_contrib: the index + 1 in the tile's list of the last record the
-// pixel included (0 if none). n_walked alone cannot tell whether the last
-// walked record was included (the list ran out after it) or failed.
+// pixel included (0 if none).
 //
-// What bounds it on the H100: neither HBM nor f32 throughput at the bench
-// scene. Per pixel-record evaluation it does ~15 f32 operations and two to
-// three transcendentals (exp, log1p, exp) from the SFU, and it reads each
-// duplicate's 40-byte record once per tile (a gather: order[rank] points
-// anywhere in the N-row table, which stays in the 50 MB L2 at N ~ 44k). The
-// roofline bound is set by the evaluations (see PERF.md); what costs time
-// beyond it is latency: one pixel's walk is a serial dependence chain
-// through log T, and a tile's block runs as long as its slowest pixel. The
-// design keeps everything per pixel in registers, broadcasts each record
-// from shared memory to all 256 threads without bank conflicts, and stops a
-// tile as soon as every pixel is saturated. Splitting long lists across
-// warps, and staging the next batch while the current one is blended, are
-// later work.
+// What bounds it on the H100: not HBM (the ~40-byte records of a tile's
+// list are gathered from the L2, which holds the N-row table) and not the
+// f32 or SFU peak (the roofline bound is under a tenth of the time), but
+// the instructions issued per (warp, record) visit, ~85 SASS instructions
+// (the exp of the power, the log1p, the exp of log T, the bookkeeping),
+// and how well the schedulers overlap the visits' serial chains. The design:
+//   * work unit a warp, not a tile: each warp owns a 16x2 pixel strip
+//     (blend_common.cuh) and walks the list alone, so it stops when its own
+//     32 pixels are saturated; 64-thread blocks (a quarter tile);
+//   * per-warp cull: a chunk of 32 records is tested against the strip,
+//     one record per lane (`rows_hit`), and the warp visits only the hits;
+//     a skipped record has alpha < 1/255 at every pixel of the strip, so
+//     the result is unchanged (n_walked still counts list positions);
+//   * staging without a stall: each record is three 16-byte loads through
+//     gid = order[rank_sorted] (resolved once by the wrapper), and the next
+//     chunk's loads are issued before the current chunk is walked;
+//   * a branch-free walk, kGroup hits at a time: the exps and log1ps of a
+//     group are independent, the log-T sum runs in order and the include
+//     decisions are selects, so a group is one basic block whose
+//     evaluations the compiler interleaves (log1p_neg in blend_common.cuh:
+//     the library's log1pf ends in a branch), with one branch per group,
+//     the warp's all-done vote.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kBlock = kTile * kTile;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTransEps = 1e-4f;
+using namespace d3gs_blend;
 
-__global__ void __launch_bounds__(kBlock)
+constexpr int kWarps = 2;   // warps (strips) per block
+constexpr int kGroup = 2;   // hits evaluated together
+constexpr int kBlocksPerTile = kWarpsPerTile / kWarps;
+constexpr float kTransEps = 1e-4f;
+static_assert(kWarpsPerTile % kWarps == 0, "a block holds whole strips");
+
+__global__ void __launch_bounds__(kWarps * 32)
 blend_fwd_kernel(const float* __restrict__ records, int record_stride,
-                 const int* __restrict__ order,
-                 const int* __restrict__ rank_sorted,
+                 const int* __restrict__ gid,
                  const int* __restrict__ starts,
                  const float* __restrict__ bg,
                  int tiles_x, int width, int height,
@@ -59,66 +62,106 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
                  float* __restrict__ alpha_out, float* __restrict__ t_final,
                  float* __restrict__ log_t_final,
                  int* __restrict__ n_walked, int* __restrict__ last_contrib) {
-  __shared__ float2 s_mean[kBlock];
-  __shared__ float4 s_conic_opa[kBlock];
-  __shared__ float4 s_rgb_depth[kBlock];
+  __shared__ Record s_rec[kWarps][32];
 
-  const int tile = blockIdx.x;
-  const int px = (tile % tiles_x) * kTile + static_cast<int>(threadIdx.x) % kTile;
-  const int py = (tile / tiles_x) * kTile + static_cast<int>(threadIdx.x) / kTile;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int tile = static_cast<int>(blockIdx.x) / kBlocksPerTile;
+  const int strip =
+      static_cast<int>(blockIdx.x) % kBlocksPerTile * kWarps + warp;
+  const int tx0 = (tile % tiles_x) * kTile;
+  const int ty0 = (tile / tiles_x) * kTile + 2 * strip;
+  const int px = tx0 + (lane & 15);
+  const int py = ty0 + (lane >> 4);
   const bool inside = px < width && py < height;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
+  const float x0 = static_cast<float>(tx0);
+  const float y0 = static_cast<float>(ty0);
   const int s0 = starts[tile];
   const int s1 = starts[tile + 1];
+  Record* rec = s_rec[warp];
 
   float log_t = 0.0f;   // log T after the last included record
   float trans = 1.0f;   // exp(log_t)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
-  int walked = 0;
+  int walked = s1 - s0;
   int last = 0;
   bool done = !inside;
 
-  for (int base = s0; base < s1; base += kBlock) {
-    // barrier: also orders the previous batch's reads before these writes
-    if (__syncthreads_count(done) == kBlock) break;
-    const int m = base + static_cast<int>(threadIdx.x);
-    if (m < s1) {
-      const float* rec =
-          records + static_cast<size_t>(order[rank_sorted[m]]) * record_stride;
-      s_mean[threadIdx.x] = make_float2(rec[0], rec[1]);
-      s_conic_opa[threadIdx.x] = make_float4(rec[2], rec[3], rec[4], rec[8]);
-      s_rgb_depth[threadIdx.x] = make_float4(rec[5], rec[6], rec[7], rec[9]);
-    }
-    __syncthreads();
-    const int n = min(kBlock, s1 - base);
-    for (int j = 0; !done && j < n; ++j) {
-      ++walked;
-      const float2 mu = s_mean[j];
-      const float4 co = s_conic_opa[j];
-      const float dx = mu.x - fx;
-      const float dy = mu.y - fy;
-      const float power = -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
-      if (power > 0.0f) continue;
-      const float raw = co.w * expf(power);
-      if (raw < kAlphaMin) continue;
-      const float alpha = fminf(kAlphaMax, raw);
-      const float log_next = log_t + log1pf(-alpha);
-      const float t_next = expf(log_next);
-      if (t_next < kTransEps) {
-        done = true;
-        break;
+  // chunk c holds list positions s0 + 32c + lane
+  int g = gid_at(gid, s0 + lane, s0, s1);
+  Record cur = {};
+  if (g >= 0) cur = load_record(records, record_stride, g);
+  int g_next = gid_at(gid, s0 + 32 + lane, s0, s1);
+  for (int base = s0; base < s1; base += 32) {
+    if (__all_sync(kFull, done)) break;
+    unsigned hits = __ballot_sync(kFull, g >= 0 && rows_hit(cur, x0, y0));
+    rec[lane] = cur;
+    __syncwarp();
+    // the next chunk's loads are issued now and consumed after the walk
+    Record nxt = {};
+    if (g_next >= 0) nxt = load_record(records, record_stride, g_next);
+    const int g_after = gid_at(gid, base + 64 + lane, s0, s1);
+
+    while (hits != 0u) {
+      int k[kGroup];
+      bool ok[kGroup];
+      float al[kGroup], lo[kGroup], cr[kGroup], cg[kGroup], cb[kGroup],
+          cd[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const bool has = hits != 0u;
+        const int j = has ? __ffs(hits) - 1 : 0;
+        hits &= hits - 1u;
+        k[u] = base - s0 + j;
+        const float4 q0 = rec[j].q0;
+        const float4 q1 = rec[j].q1;
+        const float opa = rec[j].q2.x;
+        const float dx = q0.x - fx;
+        const float dy = q0.y - fy;
+        const float power = gauss_power(q0, q1, dx, dy);
+        const float raw = opa * expf(power);
+        ok[u] = has && !done && !(power > 0.0f) && !(raw < kAlphaMin);
+        al[u] = ok[u] ? fminf(kAlphaMax, raw) : 0.0f;
+        lo[u] = log1p_neg(al[u]);
+        cr[u] = q1.y;
+        cg[u] = q1.z;
+        cb[u] = q1.w;
+        cd[u] = rec[j].q2.y;
       }
-      const float w = trans * alpha;
-      const float4 cd = s_rgb_depth[j];
-      acc_r += w * cd.x;
-      acc_g += w * cd.y;
-      acc_b += w * cd.z;
-      acc_d += w * cd.w;
-      log_t = log_next;
-      trans = t_next;
-      last = walked;
+      // log T after each candidate, the earlier candidates included
+      float ln[kGroup], tn[kGroup];
+      float l = log_t;
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        ln[u] = l + lo[u];
+        l = ok[u] ? ln[u] : l;
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) tn[u] = expf(ln[u]);
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const bool live = ok[u] && !done;
+        const bool fail = live && tn[u] < kTransEps;
+        const bool inc = live && !fail;
+        const float w = inc ? trans * al[u] : 0.0f;
+        acc_r += w * cr[u];
+        acc_g += w * cg[u];
+        acc_b += w * cb[u];
+        acc_d += w * cd[u];
+        walked = fail ? k[u] + 1 : walked;
+        last = inc ? k[u] + 1 : last;
+        log_t = inc ? ln[u] : log_t;
+        trans = inc ? tn[u] : trans;
+        done = done || fail;
+      }
+      if (__all_sync(kFull, done)) break;
     }
+    __syncwarp();   // the walk's reads before the next chunk's writes
+    cur = nxt;
+    g = g_next;
+    g_next = g_after;
   }
 
   if (!inside) return;
@@ -137,21 +180,20 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `gid` (M,) is order[rank_sorted]: the Gaussian of each sorted duplicate.
 extern "C" int d3gs_blend_fwd(const float* records, int record_stride,
-                              const int* order, const int* rank_sorted,
-                              const int* starts, const float* bg,
-                              int tiles_x, int tiles_y, int width, int height,
-                              float* image, float* depth, float* alpha,
-                              float* t_final, float* log_t_final,
-                              int* n_walked, int* last_contrib,
-                              void* stream) {
+                              const int* gid, const int* starts,
+                              const float* bg, int tiles_x, int tiles_y,
+                              int width, int height, float* image,
+                              float* depth, float* alpha, float* t_final,
+                              float* log_t_final, int* n_walked,
+                              int* last_contrib, void* stream) {
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles > 0) {
-    blend_fwd_kernel<<<num_tiles, kBlock, 0,
+    blend_fwd_kernel<<<num_tiles * kBlocksPerTile, kWarps * 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        records, record_stride, order, rank_sorted, starts, bg, tiles_x,
-        width, height, image, depth, alpha, t_final, log_t_final, n_walked,
-        last_contrib);
+        records, record_stride, gid, starts, bg, tiles_x, width, height,
+        image, depth, alpha, t_final, log_t_final, n_walked, last_contrib);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,7 +37,8 @@ def nvcc() -> str:
 
 
 def sources() -> list[str]:
-    """Names of the kernels, one per `csrc/*.cu`."""
+    """Names of the libraries, one per `csrc/*.cu`: the port's kernels and
+    `blend_checks` (two checks chip_smoke.py runs, used by no path)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 

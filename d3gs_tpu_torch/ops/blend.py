@@ -377,8 +377,12 @@ def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height, gid):
     n = records.shape[0]
     if not (0 < width <= tiles_x * TILE and 0 < height <= tiles_y * TILE):
         raise ValueError("blend: image size does not match the tile grid")
-    # (n, 16) contiguous: each row is 64-byte aligned for the 16-byte loads
+    # (n, 16) contiguous from a 16-byte boundary: every row is then aligned
+    # for the kernels' 16-byte loads (a misaligned one faults the context)
     _check("records", records, torch.float32, (n, RECORD_WIDTH), dev)
+    if records.data_ptr() % 16:
+        raise ValueError("blend: records must start on a 16-byte boundary "
+                         "(the kernels read each row as 16-byte loads)")
     _check("order", bins.order, torch.int32, (n,), dev)
     _check("rank_sorted", bins.rank_sorted, torch.int32,
            (bins.rank_sorted.shape[0],), dev)

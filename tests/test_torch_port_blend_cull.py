@@ -9,12 +9,16 @@ the Pallas kernel evaluate it in f32 (power = -0.5(a dx² + c dy²) - b dx dy,
 alpha = opa·e^power). That is checked exactly, pixel by pixel, on seeded
 numpy records with anisotropic conics (condition numbers up to ~1e4),
 opacities within 1e-6..2 % above 1/255, and extreme points placed on strip
-edges, and on the JAX-projected records of the blend test scenes. It must
-also cull: most records of a random scene miss most strips."""
+edges (`chip_smoke.cull_edge_records`, which chip_smoke.py also runs through
+the CUDA cull on the card), and on the JAX-projected records of the blend
+test scenes. It must also cull: most records of a random scene miss most
+strips. Also: the kernels' input check refuses records that are not
+16-byte aligned."""
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cull_edge_records
 from d3gs_tpu.ops.binning import bin_splats_records
 from d3gs_tpu.ops.rasterize import pack_records
 from d3gs_tpu_torch.ops import blend as B
@@ -28,7 +32,7 @@ PX = np.arange(16, dtype=np.float32)
 def _strip_alpha_max(rec, x0, y0):
     """Largest alpha >= 1/255 test value over the strip: (K, S) array of
     max over its 32 pixels of raw where power <= 0, in f32 as the kernels
-    compute it (rec (K, 10), x0/y0 (S,))."""
+    compute it (rec (K, >= 10), x0/y0 (S,))."""
     px = (x0[:, None] + PX[None, :]).astype(np.float32)          # (S, 16)
     out = np.zeros((rec.shape[0], x0.shape[0]), np.float32)
     for row in (0, 1):
@@ -42,41 +46,6 @@ def _strip_alpha_max(rec, x0, y0):
         raw = np.where(power > 0, np.float32(0), raw)
         out = np.maximum(out, raw.max(-1))
     return out
-
-
-def _random_records(seed, n=4000):
-    """Anisotropic screen-space records around a 64x64 image: σ 0.3-60 px
-    at any angle, opacities near 1/255 for half of them, and one extreme
-    point of each 1/255 ellipse on an integer pixel of a strip's last row
-    (or a tile's last column) within ±1e-3 px."""
-    rng = np.random.default_rng(seed)
-    th = rng.uniform(0, np.pi, n)
-    sl = np.exp(rng.uniform(np.log(0.5), np.log(60.0), n))
-    ss = np.exp(rng.uniform(np.log(0.3), np.log(4.0), n))
-    opa = np.where(rng.random(n) < 0.5,
-                   ALPHA_MIN * (1 + np.exp(rng.uniform(np.log(1e-6),
-                                                       np.log(2e-2), n))),
-                   rng.uniform(0.01, 1.0, n))
-    co, si = np.cos(th), np.sin(th)
-    sxx = co * co * sl * sl + si * si * ss * ss
-    syy = si * si * sl * sl + co * co * ss * ss
-    sxy = co * si * (sl * sl - ss * ss)
-    det = sxx * syy - sxy * sxy
-    tau = 2 * np.log(opa / np.float64(ALPHA_MIN))
-    hx, hy = np.sqrt(tau * sxx), np.sqrt(tau * syy)
-    delta = rng.uniform(-1e-3, 1e-3, n)
-    at = rng.integers(0, 64, n)
-    ycase = rng.random(n) < 0.5
-    # bottom of the ellipse on a strip's last row, at an integer column
-    my = np.where(ycase, 2 * rng.integers(0, 32, n) + 1 + delta - hy,
-                  at - sxy / sxx * hx)
-    mx = np.where(ycase, at - sxy / syy * hy,
-                  16 * rng.integers(0, 4, n) + 15 + delta - hx)
-    rec = np.zeros((n, 10), np.float32)
-    rec[:, 0], rec[:, 1] = mx, my
-    rec[:, 2], rec[:, 3], rec[:, 4] = syy / det, -sxy / det, sxx / det
-    rec[:, 8] = opa
-    return rec
 
 
 def _strips(size=64):
@@ -93,7 +62,7 @@ def _cull(rec, x0, y0):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_warp_rows_hit_never_drops_a_visible_strip(seed):
-    rec = _random_records(seed)
+    rec = cull_edge_records(seed)
     x0, y0 = _strips()
     hit = _cull(rec, x0, y0)
     peak = _strip_alpha_max(rec, x0, y0)
@@ -164,3 +133,33 @@ def test_sorted_gids_is_order_of_rank_sorted():
     gid = B.sorted_gids(bins)
     assert gid.dtype == torch.int32 and gid.shape == (m,)
     assert torch.equal(gid, order[rank.long()])
+
+
+def _bins(n, m, seed=4):
+    rng = np.random.default_rng(seed)
+    i32 = torch.int32
+    return B.RecordBins(
+        rank_sorted=torch.from_numpy(rng.integers(0, n, m).astype(np.int32)),
+        starts=torch.tensor([0, m], dtype=i32),
+        counts=torch.tensor([m], dtype=i32),
+        order=torch.from_numpy(rng.permutation(n).astype(np.int32)),
+        rank_bounds=torch.zeros(n + 1, dtype=i32))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_blend_inputs_need_16_byte_aligned_records(offset):
+    """The kernels read each record row as three 16-byte loads, so a
+    contiguous view that starts off a 16-byte boundary is refused before
+    any launch (on the card it would fault the context)."""
+    n = 8
+    base = torch.zeros(n * B.RECORD_WIDTH + 4, dtype=torch.float32)
+    records = base[offset:offset + n * B.RECORD_WIDTH].view(n,
+                                                            B.RECORD_WIDTH)
+    assert records.is_contiguous()
+    args = (records, _bins(n, 20), torch.zeros(3), 1, 1, 16, 16, None)
+    if (records.data_ptr() % 16) == 0:
+        gid = B._check_inputs(*args)
+        assert gid.shape == (20,)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            B._check_inputs(*args)
