@@ -13,7 +13,14 @@ Phases (any failure exits non-zero):
      checks of csrc/blend_checks.cu, the blend kernels' per-warp cull
      against their own alpha on 12,000 records whose ellipses end within
      1e-3 px of strip and tile edges, and the forward's log1p against the
-     library's log1pf on every f32 alpha in (0, 0.99]; then the blend
+     library's log1pf on every f32 alpha in (0, 0.99]; the forward
+     kernel against `blend_forward_torch` on those 12,000 edge records,
+     each alone in its own scene, counting the pixels whose include
+     decision differs and how far (in ulp) their alpha is from 1/255,
+     at most EDGE_FLIPS_ALLOWED (0), also for a copy of the forward with
+     `gauss_power` left to nvcc's contraction (built beside the kernels
+     in phase 2), which is timed by turns with the shipped one on the
+     bench scene; then the blend
      kernels on the bench scene
      (bench.py's recipe: 43,132 Gaussians, 400x400, SH degree 3, the 8x256 Blender deform MLP
      at t=0.5), the small blend scenes of tests/test_pallas_blend.py and
@@ -31,9 +38,10 @@ Phases (any failure exits non-zero):
          scale, rendered through `d3gs_tpu_torch.render.main([... "--mode",
          "render", "--benchmark"])`;
      4b. train: `d3gs_tpu_torch.train.__main__.main` on that dataset with
-         bench.py's point cloud, 20 iterations through warm-up, deform
-         steps, densification, a PSNR evaluation and a checkpoint, which
-         `render.main` then renders;
+         bench.py's point cloud, 1000 iterations through warm-up, deform
+         steps, densification, an opacity reset and the large-screen
+         prune after it, the SH ramp at 1000, a PSNR evaluation and a
+         checkpoint, which `render.main` then renders;
      4c. the three tools (`d3gs_tpu_torch.tools.exp_r5_reduce`,
          `exp_vmem_gather`, `exp_vmem_scatter`) through their main();
      4d. flagship: the train CLI with `--trainer flagship --is_ode` (the
@@ -41,13 +49,28 @@ Phases (any failure exits non-zero):
          point cloud, 10 iterations through warm-up, the alternating
          switch, a densify pass, an evaluation and a checkpoint, rendered
          through `render.main` and held against the plain blend;
+     4e. the same trainer with `--ode_solver adaptive` (Dopri5 with
+         adjoint gradients, rtol 1e-3 / atol 1e-4), 6 iterations, k = 10,
+         its checkpoint rendered and held against the plain blend, with
+         the solver's steps, evaluations and host reads;
+     4f. the same with `--use_torch_ode` (simple_start), 4 iterations;
+     4g. distillation: `d3gs_tpu_torch.train_synth_gau` with 4b's
+         checkpoint as the teacher and the 8x256 ODE student (adaptive),
+         5 iterations and a PSNR evaluation;
+     4h. the synthetic-ODE CLIs at their defaults, then `step_multi` on
+         (16, 10) per-sample grids (simple_start, adaptive, a duplicate
+         time, a parameter gradient) on the card against the CPU;
+     4i. the baseline CLI with `--deform_dtype bfloat16`, 10 iterations
+         and a render of its checkpoint, and `tools/exp_r5_mlp` (the MLP's
+         time in float32 and bfloat16);
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, both blend
      kernels alone (CUDA events and profiler device time) on the bench
      scene and on the train step's own scene, through their wrappers and
      in their plain versions; the row kernels alone beside their library
      calls and plain versions; one ODE flagship step at k = 10 and its
-     layers, one MLP-kind flagship step;
+     layers, one MLP-kind flagship step, one adaptive ODE flagship step
+     with its solver counts, integral and device times;
   6. the card, the blend bounds (from the pixel-record pairs each kernel
      evaluates on the bench scene, counted by `blend_work`, under this
      source's count and without the cull) and the issue-rate model (SASS
@@ -112,14 +135,30 @@ BWD_INC_LOG_T = (46, 2)
 # the issue-rate model: 4 warp schedulers per SM, one instruction each per
 # clock, at the 1.98 GHz boost clock
 ISSUE_PER_S = 132 * 4 * 1.98e9
-TRAIN_ITERATIONS = 20            # the training main path's steps
+TRAIN_ITERATIONS = 1000          # the training main path's steps: the
+#                                  SH ramp comes every 1000 (not a flag)
 FLAGSHIP_ITERATIONS = 10         # the flagship main path's steps
 FLAGSHIP_K = 10                  # cameras per flagship step
 FLAGSHIP_VIEWS = (12, 2)         # train / test views of its dataset
+ADAPTIVE_ITERATIONS = 6          # 4e: adaptive ODE flagship (3 warm-up)
+SIMPLE_START_ITERATIONS = 4      # 4f: adaptive simple_start (2 warm-up)
+DISTILL_ITERATIONS = 5           # 4g: distillation steps
+BF16_ITERATIONS = 10             # 4i: the baseline CLI in bf16
+SYNTH_GRID = (16, 10)            # 4h: per-sample (N, T) grids
+ADAPTIVE_TOL = (1e-3, 1e-4)      # rtol, atol of the adaptive paths
+# 4h: card against CPU at rtol 1e-5 / atol 1e-7, within 2e-3 of the
+# largest value and gradient (tests/test_torch_port_ode_adaptive.py holds
+# the CPU against JAX there to 2e-3)
+SYNTH_CHECK_TOL, SYNTH_CHECK_ERR = (1e-5, 1e-7), 2e-3
+EDGE_SCENES = 16                 # phase 3 flips: 16x16 scenes per launch
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print msg after the seconds since the script started."""
+    print(f"{time.perf_counter() - _T0:7.1f}s {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -312,10 +351,10 @@ def warp_edge_scene(dev, n: int = 600, size: int = 64):
     det = sxx * syy - sxy * sxy
     tau = 2.0 * np.log(255.0 * opa)
     hx, hy = np.sqrt(tau * sxx), np.sqrt(tau * syy)
-    # off the edge by at least 0.02 px either way: a pixel within rounding
-    # of alpha = 1/255 flips between any two f32 evaluations, the kernel's
-    # and the plain version's (`check_cull` probes the cull itself within
-    # 1e-3 px of the edges, against the kernels' own alpha)
+    # off the edge by at least 0.02 px either way (`check_cull` probes the
+    # cull within 1e-3 px of the edges against the kernels' own alpha, and
+    # `edge_flips` the forward's include decision there against the plain
+    # version's)
     delta = rng.choice([-0.3, -0.05, -0.02, 0.02, 0.05, 0.3], n)
     side = rng.integers(0, 4, n)
     row = 2 * rng.integers(0, size // 2, n) + 1       # a strip's last row
@@ -353,15 +392,16 @@ def warp_edge_scene(dev, n: int = 600, size: int = 64):
 # phases
 # --------------------------------------------------------------------------
 
-def profile(fn, calls: int = 10, top: int = 12) -> dict:
+def profile(fn, calls: int = 10, top: int = 12, cpu: bool = True) -> dict:
     """torch.profiler over `calls` calls of fn: wall time, device kernel
     time and the device's busy share per call, and the kernels by device
-    time."""
+    time. cpu=False traces the device alone: for calls of ~10^5 kernels,
+    whose host-side trace takes minutes to reduce."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with tprofile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -503,6 +543,171 @@ def check_log1p(dev) -> int:
         raise AssertionError(f"log1p_neg differs from this toolkit's log1pf "
                              f"at {bad} inputs: copy its normal path anew")
     return bad
+
+
+# gauss_power as the kernels evaluate it (csrc/blend_common.cuh: every
+# rounding pinned to the plain version's order), and as nvcc compiles the
+# same expression unpinned, contracting the products into fused
+# multiply-adds (the kernels before ROADMAP Queue 3's check)
+PINNED_POWER = ("return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn("
+                "__fmul_rn(__fmul_rn(q0.z, dx), dx),\n"
+                "                                              "
+                "__fmul_rn(__fmul_rn(q1.x, dy), dy))),\n"
+                "                   __fmul_rn(__fmul_rn(q0.w, dx), dy));")
+CONTRACTED_POWER = ("return -0.5f * (q0.z * dx * dx + q1.x * dy * dy) "
+                    "- q0.w * dx * dy;")
+# include decisions of the shipped forward that may differ from the plain
+# version's on the 12,000 edge records (phase 3): none, with gauss_power
+# pinned (the contracted copy differed on 117 pixels, up to 42,355 ulp of
+# 1/255 away)
+EDGE_FLIPS_ALLOWED = 0
+
+
+def start_contracted_build():
+    """Phase 2: start nvcc on a copy of csrc/blend_fwd.cu whose
+    `gauss_power` (csrc/blend_common.cuh) is left to nvcc's contraction;
+    -> (process, library path). Built into build/contracted/ beside the
+    port's kernels, with the same flags."""
+    import shutil
+    from d3gs_tpu_torch.ops import _build
+    out = _build.BUILD_DIR / "contracted"
+    out.mkdir(parents=True, exist_ok=True)
+    shutil.copy(_build.CSRC / "blend_fwd.cu", out / "blend_fwd.cu")
+    header = (_build.CSRC / "blend_common.cuh").read_text()
+    if PINNED_POWER not in header:
+        raise AssertionError("gauss_power changed: update PINNED_POWER")
+    (out / "blend_common.cuh").write_text(
+        header.replace(PINNED_POWER, CONTRACTED_POWER))
+    lib = out / "libblend_fwd_contracted.so"
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+         str(out / "blend_fwd.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def finish_contracted_build(proc, lib):
+    """The contracted forward's C entry (as `ops/blend.py` binds the
+    shipped one); raises if nvcc failed."""
+    import ctypes
+    from d3gs_tpu_torch.ops import blend as B
+    text = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the contracted forward:\n{text}")
+    fn = ctypes.CDLL(str(lib)).d3gs_blend_fwd
+    fn.argtypes, fn.restype = B._FWD_ARGTYPES, ctypes.c_int
+    return fn
+
+
+def forward_with(fn, records, gid, starts, bg, *, tiles_x, tiles_y, width,
+                 height, out=None):
+    """One launch of a forward kernel's C entry `fn`, into `out` or fresh
+    outputs."""
+    from d3gs_tpu_torch.ops import blend as B
+    dev = records.device
+    empty = lambda *shape, dt=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dt, device=dev)
+    if out is None:
+        out = B.BlendOutput(
+            image=empty(height, width, 3), depth=empty(height, width),
+            alpha=empty(height, width), t_final=empty(height, width),
+            log_t=empty(height, width),
+            n_walked=empty(height, width, dt=torch.int32),
+            last_contrib=empty(height, width, dt=torch.int32))
+    err = fn(records.data_ptr(), records.stride(0), gid.data_ptr(),
+             starts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, width,
+             height, out.image.data_ptr(), out.depth.data_ptr(),
+             out.alpha.data_ptr(), out.t_final.data_ptr(),
+             out.log_t.data_ptr(), out.n_walked.data_ptr(),
+             out.last_contrib.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"forward launch failed: cudaError {err}")
+    return out
+
+
+def isolated_scenes(rec: np.ndarray, dev, per: int = EDGE_SCENES):
+    """The records of `rec`, each alone in its own 64x64 scene: per x per
+    scenes a launch, record b moved by 64·(b % per, b // per) px in float32
+    (at most 1024 px, so its edge moves by <= 6e-5 px) and listed in its
+    scene's 16 tiles only. Yields (records, bins, gid, grid, origin of each
+    record's scene)."""
+    from d3gs_tpu_torch.ops.binning import RecordBins
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32),  # noqa: E731
+                                    device=dev)
+    tiles_x = 4 * per
+    tiles = np.arange(tiles_x * tiles_x)
+    owner = (tiles // tiles_x // 4) * per + (tiles % tiles_x) // 4
+    for c0 in range(0, rec.shape[0], per * per):
+        r = rec[c0:c0 + per * per].copy()
+        m = r.shape[0]
+        b = np.arange(m)
+        origin = np.stack([64 * (b % per), 64 * (b // per)], -1)
+        r[:, :2] += origin.astype(np.float32)
+        live = owner < m
+        gid = i32(owner[live])
+        starts = np.concatenate([[0], np.cumsum(live)])
+        bins = RecordBins(rank_sorted=gid, starts=i32(starts),
+                          counts=i32(live), order=i32(np.arange(m)),
+                          rank_bounds=i32(np.arange(m + 1)))
+        grid = dict(tiles_x=tiles_x, tiles_y=tiles_x, width=64 * tiles_x // 4,
+                    height=64 * tiles_x // 4)
+        yield (torch.from_numpy(r).to(dev), bins, gid, grid, origin)
+
+
+def edge_flips(dev, contracted_fn) -> dict:
+    """Phase 3, ROADMAP Queue 3: the forward kernel against
+    `blend_forward_torch` on the 12,000 records of `cull_edge_records`
+    (seeds 0-2), each alone in its scene so that a pixel's last_contrib is
+    the include decision of that one record. Counts the pixels whose
+    decision differs, and for each the plain version's float32 alpha
+    opa·e^power in ulp of 1/255 away from it; the same for the copy with
+    `gauss_power` contracted. Raises if the shipped forward differs on
+    more than EDGE_FLIPS_ALLOWED pixels."""
+    from d3gs_tpu_torch.ops import _build
+    from d3gs_tpu_torch.ops import blend as B
+    shipped = _build.entry("blend_fwd", B._FWD_ARGTYPES)
+    rec_all = np.concatenate([cull_edge_records(seed) for seed in range(3)])
+    bg = torch.zeros(3, device=dev)
+    alpha_min = float(np.float32(1.0 / 255.0))
+    ulp = 2.0 ** -31                    # of f32 values in [2^-8, 2^-7)
+    out = {"records": int(rec_all.shape[0]), "pixels": 0}
+    flips = {"shipped": [], "contracted": []}
+    for recs, bins, gid, grid, origin in isolated_scenes(rec_all, dev):
+        ref = B.blend_forward_torch(recs, bins, bg, **grid,
+                                    tile_chunk=grid["tiles_x"] ** 2)
+        out["pixels"] += int((ref.last_contrib > 0).sum())
+        for name, fn in (("shipped", shipped), ("contracted", contracted_fn)):
+            got = forward_with(fn, recs, gid, bins.starts, bg, **grid)
+            diff = (got.last_contrib > 0) != (ref.last_contrib > 0)
+            ys, xs = torch.nonzero(diff, as_tuple=True)
+            if ys.numel() == 0:
+                continue
+            per = EDGE_SCENES
+            b = (ys // 64) * per + xs // 64
+            r = recs[b]
+            dx = r[:, 0] - xs.float()
+            dy = r[:, 1] - ys.float()
+            power = (-0.5 * (r[:, 2] * dx * dx + r[:, 4] * dy * dy)
+                     - r[:, 3] * dx * dy)
+            raw = r[:, 8] * torch.exp(power)
+            kernel_in = got.last_contrib[ys, xs] > 0
+            for a, k in zip(raw.tolist(), kernel_in.tolist()):
+                flips[name].append({"ulp": abs(a - alpha_min) / ulp,
+                                    "kernel_includes": bool(k)})
+    for name, fl in flips.items():
+        out[name] = {"flips": len(fl),
+                     "max_ulp": max((f["ulp"] for f in fl), default=0.0),
+                     "kernel_includes": sum(f["kernel_includes"] for f in fl),
+                     "ulp_each": sorted(round(f["ulp"], 2) for f in fl)}
+    log(f"[3] edge flips, forward kernel vs plain on {out['records']} edge "
+        f"records each alone ({out['pixels']} included pixels by the plain "
+        f"version): {json.dumps(out)} (allowed for the shipped forward: "
+        f"{EDGE_FLIPS_ALLOWED})")
+    if out["shipped"]["flips"] > EDGE_FLIPS_ALLOWED:
+        raise AssertionError(f"the forward's include decision differs from "
+                             f"the plain version's on {out['shipped']}")
+    return out
 
 
 def blend_loss_grads(out):
@@ -816,14 +1021,44 @@ def render_main_path(dev, data, mp) -> dict:
     return result
 
 
+class WatchHostEvents:
+    """Counts, while active, the baseline loop's host events that leave no
+    trace in its result: each opacity reset (and the largest opacity of a
+    live Gaussian after it) and each densify pass's large-screen prune (the
+    live Gaussians whose largest screen radius exceeds max_screen_size)."""
+
+    def __enter__(self):
+        from d3gs_tpu_torch.models import gaussians as G
+        self.G, self.resets, self.prunes = G, [], []
+        self.reset0, self.densify0 = G.reset_opacity, G.densify_and_prune
+
+        def reset(state):
+            out = self.reset0(state)
+            self.resets.append(float(out.get_opacity[out.alive].max()))
+            return out
+
+        def densify(state, **kw):
+            if kw["max_screen_size"] > 0:
+                big = (state.max_radii2d > kw["max_screen_size"]) & state.alive
+                self.prunes.append((kw["max_screen_size"], int(big.sum())))
+            return self.densify0(state, **kw)
+        G.reset_opacity, G.densify_and_prune = reset, densify
+        return self
+
+    def __exit__(self, *exc):
+        self.G.reset_opacity = self.reset0
+        self.G.densify_and_prune = self.densify0
+
+
 def train_main_path(dev, data, mp) -> dict:
     """Phase 4b: `python -m d3gs_tpu_torch.train` in-process at the bench
     width (bench.py's 43,132 points as the dataset's point cloud, 400x400,
     SH 3, the 8x256 Blender MLP), with flags that reach every branch of
-    the loop in a few seconds: warm-up then deform steps, two densify
-    passes at a threshold low enough to clone and split, a PSNR evaluation
-    and a checkpoint. The kernels' launch counts
-    are read around that call. Then the checkpoint is rendered through
+    the loop: warm-up then deform steps, two densify passes at a threshold
+    low enough to clone and split, an opacity reset at 10 and so the
+    large-screen prune in the passes after it, the SH ramp at 1000, a PSNR
+    evaluation and a checkpoint. The kernels' launch counts are read
+    around that call. Then the checkpoint is rendered through
     `render.main`."""
     from d3gs_tpu_torch.data.image_io import read_png
     from d3gs_tpu_torch.data.ply import write_pointcloud_ply
@@ -836,26 +1071,40 @@ def train_main_path(dev, data, mp) -> dict:
     n_eval = 2
     B.launches = B.launches_bwd = 0
     t0 = time.perf_counter()
-    result = train_main([
-        "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
-        "--iterations", str(TRAIN_ITERATIONS), "--warm_up", "6",
-        "--sh_degree", "3", "--densify_from_iter", "8",
-        "--densify_until_iter", "18", "--densification_interval", "4",
-        # far below this scene's screen-space gradients (phase 5 prints
-        # them; the default 7e-4 and 2e-5 clone nothing in 12 steps here),
-        # so that the passes clone, split and grow the buffer
-        "--densify_grad_threshold", "1e-8",
-        "--test_iterations", str(TRAIN_ITERATIONS),
-        "--save_iterations", str(TRAIN_ITERATIONS),
-        "--sequence_length", "4"])
-    torch.cuda.synchronize()
+    with WatchHostEvents() as events:
+        result = train_main([
+            "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
+            "--iterations", str(TRAIN_ITERATIONS), "--warm_up", "6",
+            "--sh_degree", "3", "--densify_from_iter", "8",
+            "--densify_until_iter", "18", "--densification_interval", "4",
+            # far below this scene's screen-space gradients (phase 5 prints
+            # them; the default 7e-4 and 2e-5 clone nothing in 12 steps
+            # here), so that the passes clone, split and grow the buffer
+            "--densify_grad_threshold", "1e-8",
+            "--opacity_reset_interval", "10",
+            "--test_iterations", str(TRAIN_ITERATIONS),
+            "--save_iterations", str(TRAIN_ITERATIONS),
+            "--sequence_length", "4"])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
     log(f"[4b] train.main: {TRAIN_ITERATIONS} iterations in {wall:.1f} s; "
         f"kernel launches {launches}; losses {result.losses}; PSNR "
         f"{result.test_psnrs}; densify (iteration, alive, capacity before, "
         f"alive, capacity after) {result.densify_events}; best PSNR "
-        f"{result.best_psnr} at {result.best_iteration}")
+        f"{result.best_psnr} at {result.best_iteration}; opacity resets "
+        f"(largest live opacity after) {events.resets}; large-screen "
+        f"prunes (max_screen_size, Gaussians above it) {events.prunes}; "
+        f"active SH degree {result.state.active_sh_degree}")
+    # the SH ramp (every 1000), the reset at 10 (opacities <= 0.01) and
+    # the passes after it pruning Gaussians above 20 px
+    if result.state.active_sh_degree != 1:
+        raise AssertionError("the SH ramp did not fire at 1000: active "
+                             f"degree {result.state.active_sh_degree}")
+    if len(events.resets) != 1 or not events.resets[0] <= 0.0101:
+        raise AssertionError(f"opacity reset: {events.resets}")
+    if not events.prunes or not any(n > 0 for _, n in events.prunes):
+        raise AssertionError(f"no large-screen prune: {events.prunes}")
     if launches["blend_bwd"] < TRAIN_ITERATIONS:
         raise AssertionError(f"blend_bwd launched {launches['blend_bwd']} "
                              f"times for {TRAIN_ITERATIONS} train steps")
@@ -1055,6 +1304,299 @@ def flagship_main_path(dev, data, mp) -> dict:
     if diff > 1:
         raise AssertionError("flagship render disagrees with the plain blend")
     return launches
+
+
+def ode_counts() -> dict:
+    """The adaptive solver's counts since the last reset, forward and
+    backward."""
+    import dataclasses
+    from d3gs_tpu_torch.models.deform import ode as O
+    return {k: dataclasses.asdict(v) for k, v in O.COUNTS.items()}
+
+
+def per_step(counts: dict, steps: int) -> dict:
+    """Counts per step of `steps` steps, rounded for the log."""
+    return {d: {k: round(v / max(steps, 1), 2) for k, v in c.items()}
+            for d, c in counts.items()}
+
+
+def check_checkpoint_render(dev, mp, it, n_views, tag):
+    """`render.main` on the checkpoint at `it`; its test render 0 against
+    the plain blend of the same field's positions (at most 1 of 255)."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch import render as R
+    from d3gs_tpu_torch.data.image_io import read_png
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
+                                                     load_deform_weights)
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    t0 = time.perf_counter()
+    O.reset_counts()
+    out = R.main(["-m", mp, "--mode", "render"])
+    torch.cuda.synchronize()
+    counts = ode_counts()
+    if out != {"iteration": it, "views": n_views}:
+        raise AssertionError(f"{tag}: render of the checkpoint: {out}")
+    cfg = C.ModelParams(**C.load_cfg_args(mp))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
+    fld = load_deform_weights(mp, create_deform_field(
+        pick_field_spec(cfg, C.OptimizationParams()), device=dev))
+    view = scene.get_test_cameras()[0]
+    bg = torch.zeros(3, device=dev)
+    plain = B.blend_forward_torch(*stages(scene.gaussians, view, fld, bg)[:2],
+                                  bg, tiles_x=(WIDTH + 15) // 16,
+                                  tiles_y=(HEIGHT + 15) // 16, width=WIDTH,
+                                  height=HEIGHT)
+    want = (255 * plain.image.clamp(0, 1)).to(torch.uint8).cpu().numpy()
+    got = read_png(os.path.join(mp, "test", f"ours_{it}", "renders",
+                                "00000.png"))
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    log(f"[{tag}] render.main of the checkpoint ({fld.spec.kind}, solver "
+        f"{fld.spec.solver}, {fld.spec.compute_dtype}): {out} in "
+        f"{time.perf_counter() - t0:.1f} s; adaptive solves of the render "
+        f"{counts['forward']}; test render 0 vs the plain blend of the "
+        f"field's positions: max {diff} of 255")
+    if diff > 1:
+        raise AssertionError(f"{tag}: render disagrees with the plain blend")
+
+
+def adaptive_flagship_path(dev, data, mp, *, kind_flag, iterations, warm_up,
+                           tag) -> dict:
+    """Phases 4e / 4f: `python -m d3gs_tpu_torch.train --trainer flagship
+    --ode_solver adaptive` at the bench width with `kind_flag` (`--is_ode`:
+    the 8x256 Blender ODE field; `--use_torch_ode`: simple_start), k = 10,
+    rtol 1e-3 / atol 1e-4, through the warm-up and the deform steps, an
+    evaluation and a checkpoint, whose render is held against the plain
+    blend. Reads the blend kernels' counts and the solver's around the
+    trainer."""
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    it, k = iterations, FLAGSHIP_K
+    n_train, n_test = FLAGSHIP_VIEWS
+    B.launches = B.launches_bwd = 0
+    O.reset_counts()
+    t0 = time.perf_counter()
+    result = train_main([
+        "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
+        "--trainer", "flagship", kind_flag, "--ode_solver", "adaptive",
+        "--rtol", str(ADAPTIVE_TOL[0]), "--atol", str(ADAPTIVE_TOL[1]),
+        "--D", "8", "--W", "256", "--num_cams_per_iter", str(k),
+        "--iterations", str(it), "--warm_up", str(warm_up),
+        "--sh_degree", "3", "--test_iterations", str(it),
+        "--save_iterations", str(it)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    counts = ode_counts()
+    deform_steps = it - warm_up + 1
+    log(f"[{tag}] train.main --trainer flagship {kind_flag} --ode_solver "
+        f"adaptive: {it} iterations x {k} cameras in {wall:.1f} s; kernel "
+        f"launches {launches}; losses {result.losses}; PSNR "
+        f"{result.test_psnrs}; deform updates {result.deform_state.count}")
+    log(f"[{tag}] adaptive solves: {json.dumps(counts)}; per deform step "
+        f"(the backward; the forward includes the {n_test} evaluation "
+        f"renders' solves from 0): {json.dumps(per_step(counts, deform_steps))}"
+        f"; RK4 spends 4 x 4 x (T-1) = {16 * (k - 1)} forward evaluations "
+        f"per step at T = {k}")
+    spec = result.field.spec
+    if spec.solver != "adaptive" or (spec.rtol, spec.atol) != ADAPTIVE_TOL:
+        raise AssertionError(f"{tag}: field {spec}")
+    if launches["blend_bwd"] < it * k or \
+            launches["blend_fwd"] < it * k + n_test:
+        raise AssertionError(f"{tag}: blend launches {launches} for {it} "
+                             f"steps of {k} cameras and {n_test} renders")
+    values = [v for _, v in result.losses] + list(result.test_psnrs.values())
+    if not (values and all(math.isfinite(v) for v in values)
+            and it in result.test_psnrs):
+        raise AssertionError(f"{tag}: loss or PSNR not finite: "
+                             f"{result.losses}, {result.test_psnrs}")
+    if result.deform_state.count != deform_steps or deform_steps < 2:
+        raise AssertionError(f"{tag}: {result.deform_state.count} updates")
+    if counts["backward"]["solves"] < deform_steps * (k - 1):
+        raise AssertionError(f"{tag}: adaptive backward solves {counts}")
+    check_checkpoint_render(dev, mp, it, n_train + n_test, tag)
+    return {"launches": launches, "counts": counts,
+            "deform_steps": deform_steps, "wall_s": wall}
+
+
+def distill_path(dev, data, teacher, mp) -> dict:
+    """Phase 4g: `python -m d3gs_tpu_torch.train_synth_gau` with 4b's
+    checkpoint as the teacher (its Gaussians and 8x256 Blender MLP), the
+    8x256 Blender ODE student with the adaptive solver, 5 iterations and a
+    PSNR evaluation at 5."""
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train_synth_gau import main as distill_main
+    n_test = FLAGSHIP_VIEWS[1]
+    B.launches = B.launches_bwd = 0
+    O.reset_counts()
+    t0 = time.perf_counter()
+    result = distill_main([
+        "-s", data, "-m", mp, "--base_model_path", teacher, "--eval",
+        "--is_blender", "--is_ode", "--D", "8", "--W", "256",
+        "--sh_degree", "3", "--ode_solver", "adaptive",
+        "--distill_iterations", str(DISTILL_ITERATIONS),
+        "--test_iterations", str(DISTILL_ITERATIONS), "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    counts = ode_counts()
+    log(f"[4g] train_synth_gau.main: {DISTILL_ITERATIONS} iterations on "
+        f"{result.state.num_alive} teacher Gaussians in {wall:.1f} s; kernel "
+        f"launches {launches}; losses {result.losses}; PSNR "
+        f"{result.test_psnrs}; adaptive solves {json.dumps(counts)}")
+    if result.field.spec.solver != "adaptive" or \
+            result.deform_state.count != DISTILL_ITERATIONS:
+        raise AssertionError(f"4g: {result.field.spec}, "
+                             f"{result.deform_state.count} updates")
+    if launches["blend_fwd"] < n_test:
+        raise AssertionError(f"4g: blend_fwd launched {launches}")
+    values = [v for _, v in result.losses] + list(result.test_psnrs.values())
+    if not (all(math.isfinite(v) for v in values)
+            and DISTILL_ITERATIONS in result.test_psnrs):
+        raise AssertionError(f"4g: loss or PSNR not finite: {result.losses},"
+                             f" {result.test_psnrs}")
+    return {"launches": launches, "counts": counts, "wall_s": wall}
+
+
+def synth_paths(dev, out_dir) -> dict:
+    """Phase 4h: the synthetic-ODE CLIs at their defaults (500 iterations,
+    16 windows of 10 on per-sample grids, the `simple` net, RK4), then
+    `step_multi` of a `simple_start` field on (16, 10) per-sample grids
+    with a duplicate time, adaptive, with a parameter gradient: on the
+    card against the same call on the CPU, in this process."""
+    from d3gs_tpu_torch import render_synth_ode, train_synth_ode
+    from d3gs_tpu_torch.models.deform import fields as F
+    from d3gs_tpu_torch.models.deform import ode as O
+    t0 = time.perf_counter()
+    mse = train_synth_ode.main(["--out", out_dir])
+    mse2 = render_synth_ode.main(["--params", os.path.join(
+        out_dir, "deform_params.npz"), "--out", out_dir])
+    wall = time.perf_counter() - t0
+    log(f"[4h] train_synth_ode / render_synth_ode at their defaults: "
+        f"rollout MSE {mse} / {mse2} in {wall:.1f} s")
+    if not (math.isfinite(mse) and abs(mse2 - mse) <= 1e-6 * max(mse, 1)):
+        raise AssertionError(f"4h: rollout MSE {mse} vs {mse2}")
+
+    n, T = SYNTH_GRID
+    rng = np.random.default_rng(5)
+    y0 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    ts = np.sort(rng.uniform(0, 1, (n, T)), axis=1).astype(np.float32)
+    ts[:, 3] = ts[:, 2]
+    cot = rng.normal(size=(T, n, 3)).astype(np.float32)
+    spec = F.DeformFieldSpec(kind="simple_start", solver="adaptive",
+                             rtol=SYNTH_CHECK_TOL[0],
+                             atol=SYNTH_CHECK_TOL[1])
+    res = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        field = F.create_deform_field(spec, seed=3, device=where)
+        y = torch.from_numpy(y0).to(where).requires_grad_()
+        O.reset_counts()
+        t1 = time.perf_counter()
+        ys = field.step_multi(y, torch.from_numpy(ts).to(where), y0=y)[0]
+        grads = torch.autograd.grad(
+            (ys * torch.from_numpy(cot).to(where)).sum(),
+            [y, *field.net.parameters()])
+        torch.cuda.synchronize()
+        res[name] = {"ys": ys.detach().cpu(), "grads": [
+            g.cpu() for g in grads], "s": time.perf_counter() - t1,
+            "counts": ode_counts(), "dup": bool(torch.equal(ys[3], ys[2]))}
+    card, cpu = res["card"], res["cpu"]
+    errs = {"ys": float((card["ys"] - cpu["ys"]).abs().max()
+                        / cpu["ys"].abs().max()),
+            "grads": max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(card["grads"], cpu["grads"]))}
+    log(f"[4h] step_multi (simple_start, adaptive at {SYNTH_CHECK_TOL}, "
+        f"({n}, {T}) per-sample grids with a duplicate): card "
+        f"{card['s']:.1f} s {json.dumps(card['counts'])}, CPU "
+        f"{cpu['s']:.1f} s {json.dumps(cpu['counts'])}; card vs CPU, of "
+        f"the largest: {errs} (tol {SYNTH_CHECK_ERR}); duplicates "
+        f"bit-equal: {card['dup']}, {cpu['dup']}")
+    if not (card["dup"] and cpu["dup"]):
+        raise AssertionError("4h: a duplicate time differs")
+    if not max(errs.values()) <= SYNTH_CHECK_ERR:
+        raise AssertionError(f"4h: card and CPU differ: {errs}")
+    return {"rollout_mse": mse, "card_vs_cpu": errs}
+
+
+def bf16_path(dev, data, mp) -> dict:
+    """Phase 4i: the baseline CLI with `--deform_dtype bfloat16`, 10
+    iterations through the warm-up, an evaluation and a checkpoint, whose
+    render is held against the plain blend; then `tools/exp_r5_mlp`'s
+    main, the MLP's time in float32 and bfloat16."""
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.tools import exp_r5_mlp
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    it = BF16_ITERATIONS
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    result = train_main([
+        "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
+        "--deform_dtype", "bfloat16", "--iterations", str(it),
+        "--warm_up", "4", "--sh_degree", "3", "--test_iterations", str(it),
+        "--save_iterations", str(it), "--sequence_length", "4"])
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    log(f"[4i] train.main --deform_dtype bfloat16: {it} iterations in "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; "
+        f"losses {result.losses}; PSNR {result.test_psnrs}")
+    net = result.field.net
+    if net.dtype != torch.bfloat16 or launches["blend_bwd"] < it:
+        raise AssertionError(f"4i: {net.dtype}, launches {launches}")
+    values = [v for _, v in result.losses] + list(result.test_psnrs.values())
+    if not (all(math.isfinite(v) for v in values) and it in result.test_psnrs):
+        raise AssertionError(f"4i: loss or PSNR not finite: {result.losses}")
+    check_checkpoint_render(dev, mp, it, 6, "4i")
+    mlp = exp_r5_mlp.main(["--reps", "20"])
+    log(f"[4i] tools/exp_r5_mlp: {json.dumps(mlp)}")
+    # what the MLP's forward + backward spends in each dtype
+    from d3gs_tpu_torch.models.deform.fields import (DeformFieldSpec,
+                                                     create_deform_field)
+    xyz = exp_r5_mlp.make_inputs(dev)
+    for dtype in ("float32", "bfloat16"):
+        fld = create_deform_field(DeformFieldSpec(
+            kind="baseline", is_blender=True, compute_dtype=dtype),
+            device=dev)
+
+        def fwd_bwd():
+            x = xyz.detach().requires_grad_()
+            dx, dr, ds = fld.step(x, 0.5)
+            loss = (dx * dx).sum() + (dr * dr).sum() + (ds * ds).sum()
+            return torch.autograd.grad(loss, [*fld.net.parameters(), x])
+        log(f"[4i] profile of the MLP's forward + backward in {dtype}: "
+            f"{json.dumps(profile(fwd_bwd, calls=5, top=10))}")
+    return {"launches": launches, "mlp": mlp}
+
+
+def contracted_times(contracted_fn, records, bins, bg, grid) -> dict:
+    """Phase 3: the forward with `gauss_power` contracted, on the bench
+    scene: against the plain version (as `compare_blend` holds the shipped
+    one), and its time beside the shipped (pinned) forward's, launched by
+    turns into one preallocated output (CUDA events, 200 launches a turn,
+    two turns each)."""
+    from d3gs_tpu_torch.ops import _build
+    from d3gs_tpu_torch.ops import blend as B
+    gid = B.sorted_gids(bins)
+    shipped = _build.entry("blend_fwd", B._FWD_ARGTYPES)
+    got = forward_with(contracted_fn, records, gid, bins.starts, bg, **grid)
+    ref = B.blend_forward_torch(records, bins, bg, **grid)
+    err = float((got.image - ref.image).abs().max())
+    if not err <= ATOL + RTOL * float(ref.image.abs().max()):
+        raise AssertionError(f"contracted forward differs from plain by {err}")
+    ms = {"shipped": [], "contracted": []}
+    for _ in range(2):
+        for name, fn in (("shipped", shipped), ("contracted", contracted_fn)):
+            ms[name].append(cuda_ms(lambda: forward_with(
+                fn, records, gid, bins.starts, bg, **grid, out=got), 200))
+    out = {"max_abs_err_vs_plain": err, "ms": ms,
+           "shipped_over_contracted": (sum(ms["shipped"])
+                                       / sum(ms["contracted"]))}
+    log(f"[3] forward with gauss_power contracted, bench scene: "
+        f"{json.dumps(out)}")
+    return out
 
 
 def blend_kernel_times(records, bins, bg, grid) -> dict:
@@ -1330,10 +1872,12 @@ def flagship_timings(dev, state, bg) -> tuple[dict, dict]:
         for i in range(k)]
     fids = [c.fid for c in cams]
     opt, pipe = C.OptimizationParams(num_cams_per_iter=k), C.PipelineParams()
-    out = {}
-    for kind in ("mlp", "ode"):
-        model = C.ModelParams(is_blender=True, is_ode=kind == "ode", D=8,
-                              W=256, sh_degree=3)
+    out, runs, fields = {}, {}, {}
+    for kind in ("mlp", "adaptive", "ode"):
+        model = C.ModelParams(is_blender=True, is_ode=kind != "mlp", D=8,
+                              W=256, sh_degree=3,
+                              ode_solver="adaptive" if kind == "adaptive"
+                              else "rk4")
         field = create_deform_field(pick_field_spec(model, opt), seed=4,
                                     device=dev, opt_cfg=opt)
         dstate = field.init_state()
@@ -1341,14 +1885,19 @@ def flagship_timings(dev, state, bg) -> tuple[dict, dict]:
                                  model_cfg=model, field=field,
                                  update_gaussians=True, update_deform=True,
                                  use_deform=True)
-        run = lambda: step(state, dstate, cams, 5000, bg)  # noqa: E731
+        run = (lambda step=step, dstate=dstate:  # noqa: E731
+               step(state, dstate, cams, 5000, bg))
+        runs[kind], fields[kind] = run, field
         torch.cuda.reset_peak_memory_stats(dev)
         ms = cuda_ms(run, 3, warmup=1)
         out[f"{kind}_step_ms"] = ms
         out[f"{kind}_step_ms_per_camera"] = ms / k
         out[f"{kind}_peak_memory_gb"] = torch.cuda.max_memory_allocated(
             dev) / 1e9
-    # the ODE step's layers (field, step, run: the ODE kind's, last above)
+    out.update(adaptive_step_layers(fields["adaptive"], runs["adaptive"],
+                                    state, cams, bg))
+    # the ODE step's layers (field, step, run: the RK4 ODE kind's, last
+    # above)
     params = list(field.net.parameters())
     xyz = state.params.xyz
     cot = torch.randn((k, xyz.shape[0], 3), device=dev, generator=gen)
@@ -1406,7 +1955,65 @@ def flagship_timings(dev, state, bg) -> tuple[dict, dict]:
     out["ode_share_of_device_time"] = (ode_prof["device_ms_per_call"]
                                        / prof["device_ms_per_call"])
     out["ode_integral_profile"] = ode_prof
+    out["ode_step_device_ms"] = prof["device_ms_per_call"]
     return out, prof
+
+
+def adaptive_step_layers(field, run, state, cams, bg) -> dict:
+    """Phase 5: the adaptive ODE flagship step (`run`, k = 10, rtol 1e-3 /
+    atol 1e-4): the solver's counts over one step, the integral forward
+    and forward + backward (CUDA events), torch.profiler's device time of
+    the step and of the integral, and the integral's share. The adjoint's
+    steps depend on the cotangent, so the integral's backward takes the
+    step's own: d loss / d positions of the k renders' (1-λ)·L1 +
+    λ·(1-SSIM)."""
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.models.renderer import render
+    from d3gs_tpu_torch.ops.losses import l1_loss, ssim
+    params = list(field.net.parameters())
+    xyz = state.params.xyz
+    fids = [c.fid for c in cams]
+    with torch.no_grad():
+        means = field.step_multi(xyz, fids, y0=xyz)[0]
+    means.requires_grad_()
+    loss = sum(0.8 * l1_loss(out, c.image) + 0.2 * (1 - ssim(out, c.image))
+               for out, c in ((render(state, c, d_xyz=means[i],
+                                      direct_compute=True, bg=bg,
+                                      depth_grad=False).image, c)
+                              for i, c in enumerate(cams))) / len(cams)
+    (cot,) = torch.autograd.grad(loss, means)
+
+    def ode_fwd():
+        with torch.no_grad():
+            return field.step_multi(xyz, fids, y0=xyz)
+
+    def ode_fwd_bwd():
+        ys = field.step_multi(xyz, fids, y0=xyz)[0]
+        return torch.autograd.grad(ys, params, cot)
+
+    O.reset_counts()
+    run()
+    torch.cuda.synchronize()
+    counts = ode_counts()
+    O.reset_counts()
+    ode_fwd_bwd()
+    torch.cuda.synchronize()
+    integral_counts = ode_counts()
+    prof = profile(run, calls=1, cpu=False)
+    ode_prof = profile(ode_fwd_bwd, calls=1, top=4, cpu=False)
+    return {
+        "adaptive_counts_per_step": counts,
+        "adaptive_integral_counts": integral_counts,
+        "adaptive_integral_fwd_ms": cuda_ms(ode_fwd, 3, warmup=1),
+        "adaptive_integral_fwd_bwd_ms": cuda_ms(ode_fwd_bwd, 3, warmup=1),
+        "adaptive_step_device_ms": prof["device_ms_per_call"],
+        "adaptive_step_profile": prof,
+        "adaptive_integral_device_ms": ode_prof["device_ms_per_call"],
+        "adaptive_ode_share_of_device_time": (
+            ode_prof["device_ms_per_call"] / prof["device_ms_per_call"]
+            if prof["device_ms_per_call"] > 0 else float("nan")),
+        "rk4_forward_evaluations_per_step": 16 * (len(fids) - 1),
+    }
 
 
 def main() -> int:
@@ -1436,7 +2043,9 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
+    contracted_build = start_contracted_build()
     logs = _build.build()
+    contracted_fn = finish_contracted_build(*contracted_build)
     release = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
     release = [ln for ln in release.splitlines() if "release" in ln]
@@ -1461,6 +2070,7 @@ def main() -> int:
     records, bins, grid = stages(state, cam, field, bg)
     check_cull(dev)
     check_log1p(dev)
+    flips = edge_flips(dev, contracted_fn)
     bench = f"bench scene {N_BENCH} @ {WIDTH}x{HEIGHT}"
     bench_err = compare_blend(bench, records, bins, bg, grid)
     bench_bwd_err = compare_blend_bwd(bench, records, bins, bg, grid,
@@ -1479,6 +2089,7 @@ def main() -> int:
     for name, rec_s, bins_s in edges:
         compare_blend(name, rec_s, bins_s, bg1, small)
         compare_blend_bwd(name, rec_s, bins_s, bg1, small, BWD_TOL[name])
+    contracted = contracted_times(contracted_fn, records, bins, bg, grid)
     # ---- 3c. the row kernels vs plain at the tools' shapes ---------------
     rows_in = row_inputs(dev)
     row_errs = compare_rows(rows_in)
@@ -1499,9 +2110,26 @@ def main() -> int:
         write_dnerf_dataset(data_f, *FLAGSHIP_VIEWS, size=WIDTH)
         launches = flagship_main_path(dev, data_f,
                                       os.path.join(tmp, "flagship"))
+        # ---- 4e / 4f. the adaptive solver in the flagship trainer -------
+        adaptive = adaptive_flagship_path(
+            dev, data_f, os.path.join(tmp, "adaptive"), kind_flag="--is_ode",
+            iterations=ADAPTIVE_ITERATIONS, warm_up=3, tag="4e")
+        simple_start = adaptive_flagship_path(
+            dev, data_f, os.path.join(tmp, "simple_start"),
+            kind_flag="--use_torch_ode", iterations=SIMPLE_START_ITERATIONS,
+            warm_up=2, tag="4f")
+        # ---- 4g. distillation from 4b's checkpoint ----------------------
+        distill = distill_path(dev, data, os.path.join(tmp, "trained"),
+                               os.path.join(tmp, "distill"))
+        # ---- 4h. the synthetic-ODE harness, per-sample grids ------------
+        synth = synth_paths(dev, os.path.join(tmp, "synth"))
+        # ---- 4i. the bf16 deform MLP ------------------------------------
+        bf16 = bf16_path(dev, data, os.path.join(tmp, "bf16"))
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
-        f"{launches}")
+        f"{launches}, adaptive flagship {adaptive['launches']}, "
+        f"simple_start {simple_start['launches']}, distill "
+        f"{distill['launches']}, bf16 {bf16['launches']}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,
@@ -1520,6 +2148,23 @@ def main() -> int:
     ft["card"] = smi
     log("[5] flagship steps: " + json.dumps(ft))
     log("[5] profile of one flagship ODE step: " + json.dumps(fprof))
+    c = ft["adaptive_counts_per_step"]
+    log(f"[5] adaptive vs RK4 flagship step, k = {FLAGSHIP_K}: step "
+        f"{ft['adaptive_step_ms']:.1f} vs {ft['ode_step_ms']:.1f} ms, device "
+        f"{ft['adaptive_step_device_ms']:.1f} vs "
+        f"{ft['ode_step_device_ms']:.1f} ms, integral share "
+        f"{ft['adaptive_ode_share_of_device_time']:.3f} vs "
+        f"{ft['ode_share_of_device_time']:.3f}; forward {c['forward']} vs "
+        f"RK4's {ft['rk4_forward_evaluations_per_step']} evaluations, "
+        f"backward {c['backward']} vs RK4's "
+        f"{ft['rk4_forward_evaluations_per_step']} recomputed + "
+        f"{ft['rk4_forward_evaluations_per_step']} backward; bf16 / f32 MLP "
+        f"fwd+bwd {bf16['mlp']['bf16_over_f32_fwd_bwd']:.3f} "
+        f"({json.dumps(bf16['mlp']['ms'])}); {smi}")
+    log(f"[5] gauss_power pinned (shipped) against contracted: "
+        f"{json.dumps(contracted)}; edge flips shipped "
+        f"{flips['shipped']['flips']}, contracted "
+        f"{flips['contracted']['flips']}")
 
     bounds = blend_bounds(records, bins, grid, work)
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = (

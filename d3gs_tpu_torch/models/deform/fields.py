@@ -11,8 +11,12 @@ Kinds (reference scene/deform_model.py):
 The network's parameters live in its `nn.Module`; `DeformState` holds the
 Adam moments beside them, and `DeformField.update` steps the parameters in
 place (torch-Adam semantics, eps 1e-15, weight decay added to the gradient).
-The ODE kinds integrate with the fixed-step RK4 of `ode.py`; the adaptive
-solver raises (ROADMAP.md, Queue 1).
+The ODE kinds integrate with the fixed-step RK4 of `ode.py` (`solver="rk4"`)
+or its adaptive Dopri5 with adjoint gradients (`solver="adaptive"`, at
+`rtol` / `atol`). `compute_dtype="bfloat16"` runs the MLP kinds' products
+and activations in bf16 (networks.py); unlike the JAX package, which
+ignores the dtype of the ODE kinds and reads any other string as float32,
+the port raises ValueError for both.
 
 Checkpoints use the JAX package's npz layout — one array per flax leaf,
 keyed by `jax.tree_util.keystr` of its path, e.g.
@@ -30,9 +34,10 @@ import torch
 from torch import nn
 
 from ...ops.schedules import expon_lr
-from .networks import (DeformMLP, DeformNetworkODE, DeformNetworkSimple,
-                       DeformNetworkSimpleStart)
-from .ode import odeint_from_zero, odeint_grid
+from .networks import (COMPUTE_DTYPES, DeformMLP, DeformNetworkODE,
+                       DeformNetworkSimple, DeformNetworkSimpleStart)
+from .ode import (odeint_adaptive, odeint_adaptive_from_zero,
+                  odeint_from_zero, odeint_grid)
 
 _DEFORM_LR_SCALE = 5.0   # reference deform.py: position_lr_init x 5
 
@@ -54,10 +59,10 @@ class DeformFieldSpec:
     output_scale: float = 1.0
     skips: tuple = (4,)
     n_substeps: int = 4             # RK4 substeps per grid segment
-    solver: str = "rk4"             # rk4 | adaptive (not ported)
+    solver: str = "rk4"             # rk4 | adaptive (Dopri5 + adjoint)
     rtol: float = 1e-3              # adaptive-solver tolerances
     atol: float = 1e-4
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # float32 | bfloat16 (MLP kinds only)
 
 
 @dataclasses.dataclass
@@ -86,16 +91,29 @@ class DeformField:
             return lambda t, y: self.net(t, y, anchor)
         return self.net
 
+    def _anchor(self, xyz, y0):
+        """The `simple_start` anchor (the trajectory's start state)."""
+        if self.spec.kind != "simple_start":
+            return None
+        return xyz if y0 is None else y0
+
     def step(self, xyz: torch.Tensor, t, y0: torch.Tensor | None = None):
         """Deformation at the (scalar) time t -> (d_xyz, d_rot, d_scale).
         MLP kinds evaluate the net (`warp` returns 0.0 for d_rot and
-        d_scale); ODE kinds integrate xyz from 0 to t with 2·n_substeps RK4
-        steps and return absolute positions with zero d_rot, d_scale.
-        Differentiable: the render paths call it under `torch.no_grad()`."""
+        d_scale); ODE kinds integrate xyz from 0 to t (2·n_substeps RK4
+        steps, or the adaptive solve) and return absolute positions with
+        zero d_rot, d_scale. Differentiable: the render paths call it under
+        `torch.no_grad()`."""
         if self.spec.kind in MLP_KINDS:
             return self.net(xyz, t)
-        f = self._dynamics(xyz if y0 is None else y0)
-        y = odeint_from_zero(f, xyz, t, n_substeps=2 * self.spec.n_substeps)
+        anchor = self._anchor(xyz, y0)
+        if self.spec.solver == "adaptive":
+            y = odeint_adaptive_from_zero(self.net, xyz, t,
+                                          rtol=self.spec.rtol,
+                                          atol=self.spec.atol, anchor=anchor)
+        else:
+            y = odeint_from_zero(self._dynamics(anchor), xyz, t,
+                                 n_substeps=2 * self.spec.n_substeps)
         n = xyz.shape[0]
         return y, xyz.new_zeros((n, 4)), xyz.new_zeros((n, 3))
 
@@ -109,8 +127,13 @@ class DeformField:
             outs = [self.net(xyz, t) for t in ts]
             return tuple(torch.stack(o) if isinstance(o[0], torch.Tensor)
                          else o[0] for o in zip(*outs))
-        f = self._dynamics(xyz if y0 is None else y0)
-        ys = odeint_grid(f, xyz, ts, n_substeps=self.spec.n_substeps)
+        anchor = self._anchor(xyz, y0)
+        if self.spec.solver == "adaptive":
+            ys = odeint_adaptive(self.net, xyz, ts, rtol=self.spec.rtol,
+                                 atol=self.spec.atol, anchor=anchor)
+        else:
+            ys = odeint_grid(self._dynamics(anchor), xyz, ts,
+                             n_substeps=self.spec.n_substeps)
         T, n = ys.shape[:2]
         return ys, xyz.new_zeros((T, n, 4)), xyz.new_zeros((T, n, 3))
 
@@ -150,7 +173,8 @@ def _build_network(spec: DeformFieldSpec, gen: torch.Generator) -> nn.Module:
     if spec.kind in MLP_KINDS:
         return DeformMLP(D=spec.D, W=spec.W, multires=spec.multires,
                          is_blender=spec.is_blender, is_6dof=spec.is_6dof,
-                         full_heads=spec.kind == "baseline", generator=gen)
+                         full_heads=spec.kind == "baseline",
+                         compute_dtype=spec.compute_dtype, generator=gen)
     if spec.kind == "ode":
         return DeformNetworkODE(D=spec.D, W=spec.W, multires=spec.multires,
                                 is_blender=spec.is_blender,
@@ -171,18 +195,15 @@ def create_deform_field(spec: DeformFieldSpec, *, seed: int = 0,
     """A freshly initialized field (weights drawn from torch.Generator(seed)),
     with the learning-rate schedule of `opt_cfg` (the defaults of the JAX
     package without one)."""
-    if spec.solver == "adaptive":
-        raise NotImplementedError(
-            "solver='adaptive' (Dopri5 with per-sample controllers) is not "
-            "ported yet (ROADMAP.md, Queue 1: the adaptive ODE solver); use "
-            "the fixed-step 'rk4'")
-    if spec.solver != "rk4":
+    if spec.solver not in ("rk4", "adaptive"):
         raise ValueError(f"unknown ODE solver {spec.solver!r} (expected "
                          "'rk4' or 'adaptive')")
-    if spec.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={spec.compute_dtype!r}: the port runs the deform "
-            "nets in float32 only (ROADMAP.md, Queue 1: bf16 deform_dtype)")
+    if spec.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {spec.compute_dtype!r} "
+                         f"(expected one of {sorted(COMPUTE_DTYPES)})")
+    if spec.compute_dtype != "float32" and spec.kind not in MLP_KINDS:
+        raise ValueError(f"compute_dtype={spec.compute_dtype!r} applies to "
+                         f"the MLP kinds {MLP_KINDS}, not to {spec.kind!r}")
     gen = torch.Generator().manual_seed(seed)
     field = DeformField(spec=spec, net=_build_network(spec, gen).to(device))
     if opt_cfg is not None:

@@ -16,6 +16,17 @@ The MLP and ODE nets use nn.Linear's default init bounds, U(±1/√fan_in) for
 weight and bias; the tanh nets N(0, 0.2) weights and zero biases. All draw
 from an explicit generator. Each net names its layers by their flax paths
 (`flax_layers`), so checkpoints carry across in the JAX package's layout.
+
+`DeformMLP(compute_dtype="bfloat16")` is the JAX package's bf16 compute
+dtype (flax `Dense(dtype=bfloat16)`): the parameters stay float32 and are
+cast to bf16 at each forward, each product rounds to bf16 before its bias
+is added in bf16, the activations are bf16, the positional encodings are
+computed in float32 and then cast, and the heads come back as float32.
+The products stay dense matmuls (cuBLAS on the card). The JAX package
+accepts any dtype string on any net: it ignores it for the ODE nets and
+reads every string but "bfloat16" as float32. Here only DeformMLP takes a
+compute dtype, and `fields.create_deform_field` raises ValueError for an
+ODE kind with bf16 and for any string but "float32" / "bfloat16".
 """
 from __future__ import annotations
 
@@ -23,6 +34,8 @@ import torch
 from torch import nn
 
 from ...ops.transforms import exp_se3
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def positional_encoding(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
@@ -67,16 +80,17 @@ def _time_column(t, x: torch.Tensor) -> torch.Tensor:
 class DeformMLP(nn.Module):
     """forward(x (N,3), t (N,1) or scalar) -> (d_xyz, d_rot, d_scale);
     d_xyz is (N, 4, 4) SE(3) with is_6dof; with full_heads=False, d_rot =
-    d_scale = 0.0."""
+    d_scale = 0.0. The outputs are float32 for either compute dtype."""
 
     def __init__(self, D: int = 8, W: int = 256, multires: int = 10,
                  is_blender: bool = False, is_6dof: bool = False,
-                 full_heads: bool = True, *,
+                 full_heads: bool = True, compute_dtype: str = "float32", *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.D, self.W, self.multires = D, W, multires
         self.is_blender, self.is_6dof = is_blender, is_6dof
         self.full_heads = full_heads
+        self.dtype = COMPUTE_DTYPES[compute_dtype]
         self.t_multires = 6 if is_blender else 10
         lin = lambda i, o: _linear(i, o, generator, device)  # noqa: E731
         t_dim = pe_dim(1, self.t_multires)
@@ -104,28 +118,40 @@ class DeformMLP(nn.Module):
         pre = list(self.timenet) if self.timenet is not None else []
         return _torch_linear_paths(pre + list(self.trunk) + list(self.heads))
 
+    def _lin(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """layer(x) in the compute dtype: in bf16 the product rounds to bf16
+        and the bias is added in bf16, as flax's Dense does."""
+        if self.dtype == torch.float32:
+            return layer(x)
+        w, b = layer.weight.to(self.dtype), layer.bias.to(self.dtype)
+        return torch.matmul(x.to(self.dtype), w.T) + b
+
     def forward(self, x: torch.Tensor, t):
+        lin = self._lin
         t_emb = positional_encoding(_time_column(t, x), self.t_multires)
         if self.timenet is not None:
-            t_emb = self.timenet[1](torch.relu(self.timenet[0](t_emb)))
-        inp = torch.cat([positional_encoding(x, self.multires), t_emb], dim=-1)
+            t_emb = lin(self.timenet[1], torch.relu(lin(self.timenet[0],
+                                                         t_emb)))
+        inp = torch.cat([positional_encoding(x, self.multires).to(self.dtype),
+                         t_emb.to(self.dtype)], dim=-1)
         h = inp
         for i, layer in enumerate(self.trunk):
-            h = torch.relu(layer(h))
+            h = torch.relu(lin(layer, h))
             if i == self.skip:
                 h = torch.cat([inp, h], dim=-1)
+        head = lambda layer: lin(layer, h).float()  # noqa: E731
         if self.is_6dof:
-            w, v = self.heads[0](h), self.heads[1](h)
+            w, v = head(self.heads[0]), head(self.heads[1])
             theta = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
             w = w / (theta + 1e-5)
             v = v / (theta + 1e-5)
             d_xyz = exp_se3(torch.cat([w, v], dim=-1), theta[..., 0])
             rest = self.heads[2:]
         else:
-            d_xyz, rest = self.heads[0](h), self.heads[1:]
+            d_xyz, rest = head(self.heads[0]), self.heads[1:]
         if not self.full_heads:
             return d_xyz, 0.0, 0.0
-        return d_xyz, rest[0](h), rest[1](h)
+        return d_xyz, head(rest[0]), head(rest[1])
 
 
 class DeformNetworkODE(nn.Module):

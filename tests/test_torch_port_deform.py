@@ -85,15 +85,21 @@ def test_positional_encoding():
 
 
 def test_unported_kinds_raise():
-    """The ODE kinds and the 6DoF head are ported; the adaptive solver and
-    a bf16 compute dtype still raise, naming ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.create_deform_field(F.DeformFieldSpec(kind="ode",
-                                                solver="adaptive"),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.create_deform_field(F.DeformFieldSpec(compute_dtype="bfloat16"),
-                              device="cpu")
-    for spec in (F.DeformFieldSpec(kind="ode"),
+    """The adaptive solver builds for the ODE kinds and bf16 for the MLP
+    kinds; bf16 raises ValueError for the ODE kinds (the JAX package
+    ignores it there) and an unknown dtype string raises (JAX reads it as
+    float32)."""
+    for spec in (F.DeformFieldSpec(kind="ode", solver="adaptive"),
+                 F.DeformFieldSpec(kind="simple_start", solver="adaptive"),
+                 F.DeformFieldSpec(compute_dtype="bfloat16"),
+                 F.DeformFieldSpec(kind="warp", compute_dtype="bfloat16"),
+                 F.DeformFieldSpec(kind="ode"),
                  F.DeformFieldSpec(is_6dof=True)):
         assert F.create_deform_field(spec, device="cpu").spec == spec
+    for kind in ("ode", "simple", "simple_start"):
+        with pytest.raises(ValueError, match="bfloat16"):
+            F.create_deform_field(F.DeformFieldSpec(
+                kind=kind, compute_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError, match="bf16"):
+        F.create_deform_field(F.DeformFieldSpec(compute_dtype="bf16"),
+                              device="cpu")
