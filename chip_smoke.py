@@ -17,10 +17,9 @@ Phases (any failure exits non-zero):
      kernel against `blend_forward_torch` on those 12,000 edge records,
      each alone in its own scene, counting the pixels whose include
      decision differs and how far (in ulp) their alpha is from 1/255,
-     at most EDGE_FLIPS_ALLOWED (0), also for a copy of the forward with
-     `gauss_power` left to nvcc's contraction (built beside the kernels
-     in phase 2), which is timed by turns with the shipped one on the
-     bench scene; then the blend
+     at most EDGE_FLIPS_ALLOWED (0), and for the check's control, a copy
+     of the forward with `gauss_power` left to nvcc's contraction (built
+     beside the kernels in phase 2), at least one; then the blend
      kernels on the bench scene
      (bench.py's recipe: 43,132 Gaussians, 400x400, SH degree 3, the 8x256 Blender deform MLP
      at t=0.5), the small blend scenes of tests/test_pallas_blend.py and
@@ -34,14 +33,16 @@ Phases (any failure exits non-zero):
      scatter-add within 1e-5 of the largest |sum|;
   4. the main paths, each with the kernels' counts set to 0 just before it
      and read just after:
-     4.  render: a D-NeRF-format dataset and a model directory at the bench
-         scale, rendered through `d3gs_tpu_torch.render.main([... "--mode",
-         "render", "--benchmark"])`;
+     4.  render: a D-NeRF-format dataset (bench.py's scene moving by
+         t·MOTION, through the plain blend) and a model directory at the
+         bench scale, rendered through `d3gs_tpu_torch.render.main([...
+         "--mode", "render", "--benchmark"])`;
      4b. train: `d3gs_tpu_torch.train.__main__.main` on that dataset with
          bench.py's point cloud, 1000 iterations through warm-up, deform
-         steps, densification, an opacity reset and the large-screen
-         prune after it, the SH ramp at 1000, a PSNR evaluation and a
-         checkpoint, which `render.main` then renders;
+         steps, three densify passes, an opacity reset at 500 and the
+         large-screen prune at 750, the SH ramp at 1000, PSNR evaluations
+         and a checkpoint, which `render.main` then renders; the losses
+         must fall and the PSNRs reach their floors;
      4c. the three tools (`d3gs_tpu_torch.tools.exp_r5_reduce`,
          `exp_vmem_gather`, `exp_vmem_scatter`) through their main();
      4d. flagship: the train CLI with `--trainer flagship --is_ode` (the
@@ -56,7 +57,7 @@ Phases (any failure exits non-zero):
      4f. the same with `--use_torch_ode` (simple_start), 4 iterations;
      4g. distillation: `d3gs_tpu_torch.train_synth_gau` with 4b's
          checkpoint as the teacher and the 8x256 ODE student (adaptive),
-         5 iterations and a PSNR evaluation;
+         5 iterations, a bounded trajectory loss and a PSNR evaluation;
      4h. the synthetic-ODE CLIs at their defaults, then `step_multi` on
          (16, 10) per-sample grids (simple_start, adaptive, a duplicate
          time, a parameter gradient) on the card against the CPU;
@@ -137,6 +138,22 @@ BWD_INC_LOG_T = (46, 2)
 ISSUE_PER_S = 132 * 4 * 1.98e9
 TRAIN_ITERATIONS = 1000          # the training main path's steps: the
 #                                  SH ramp comes every 1000 (not a flag)
+# 4b's host events: densify passes at 250, 500 and 750, the opacity reset
+# at 500, so that the pass at 750 applies the large-screen prune and 250
+# steps follow it
+TRAIN_DENSIFY_INTERVAL, TRAIN_DENSIFY_UNTIL = 250, 751
+TRAIN_RESET_INTERVAL = 500
+MOTION = (0.3, 0.1, 0.0)         # the datasets' scene moves by t·MOTION
+# 4b: the mean test PSNR at the end, and each checkpoint render's PSNR
+# against its view, at least these (dB). Seven runs read 26.1-28.9 and
+# 17.8-44.6 (the lowest: test view 1, at t = 1 from the pose of a t = 2/3
+# train view); the first evaluation 15.1, a black render 6.6-7.8
+TRAIN_PSNR_FLOOR, VIEW_PSNR_FLOOR = 20.0, 15.0
+# 4g: the teacher's trajectories over a window depart from their start by
+# about |t·MOTION| <= 0.3 per coordinate, and a student at rest is that far
+# off: its L1 loss stays below twice that (the run from a diverged teacher
+# read 2,832)
+DISTILL_LOSS_BOUND = 2 * max(abs(m) for m in MOTION)
 FLAGSHIP_ITERATIONS = 10         # the flagship main path's steps
 FLAGSHIP_K = 10                  # cameras per flagship step
 FLAGSHIP_VIEWS = (12, 2)         # train / test views of its dataset
@@ -191,10 +208,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def bench_points():
     """bench.py:45-48: 43,132 points uniform in [-1.3, 1.3]^3 and uniform
     RGB colours, numpy seed 0."""
-    rng = np.random.default_rng(0)
-    pts = (rng.random((N_BENCH, 3)) * 2.6 - 1.3).astype(np.float32)
-    cols = rng.uniform(0, 1, (N_BENCH, 3)).astype(np.float32)
-    return pts, cols
+    from d3gs_tpu_torch.tools.exp_empty_views import bench_points as points
+    return points(N_BENCH)
 
 
 def bench_params(dev, *, f_rest_std: float = 0.0, seed: int = 0) -> dict:
@@ -558,8 +573,9 @@ CONTRACTED_POWER = ("return -0.5f * (q0.z * dx * dx + q1.x * dy * dy) "
                     "- q0.w * dx * dy;")
 # include decisions of the shipped forward that may differ from the plain
 # version's on the 12,000 edge records (phase 3): none, with gauss_power
-# pinned (the contracted copy differed on 117 pixels, up to 42,355 ulp of
-# 1/255 away)
+# pinned. The contracted copy is the check's control: it must differ (it
+# differed on 117 pixels, up to 42,355 ulp of 1/255 away), or the records
+# no longer reach the threshold closely enough to tell the two apart.
 EDGE_FLIPS_ALLOWED = 0
 
 
@@ -663,7 +679,8 @@ def edge_flips(dev, contracted_fn) -> dict:
     decision differs, and for each the plain version's float32 alpha
     opa·e^power in ulp of 1/255 away from it; the same for the copy with
     `gauss_power` contracted. Raises if the shipped forward differs on
-    more than EDGE_FLIPS_ALLOWED pixels."""
+    more than EDGE_FLIPS_ALLOWED pixels, or the contracted control on
+    none."""
     from d3gs_tpu_torch.ops import _build
     from d3gs_tpu_torch.ops import blend as B
     shipped = _build.entry("blend_fwd", B._FWD_ARGTYPES)
@@ -707,6 +724,9 @@ def edge_flips(dev, contracted_fn) -> dict:
     if out["shipped"]["flips"] > EDGE_FLIPS_ALLOWED:
         raise AssertionError(f"the forward's include decision differs from "
                              f"the plain version's on {out['shipped']}")
+    if out["contracted"]["flips"] == 0:
+        raise AssertionError("the contracted control flips no pixel: the "
+                             "edge records no longer test the roundings")
     return out
 
 
@@ -747,38 +767,53 @@ def compare_blend_bwd(name, records, bins, bg, grid, tol) -> float:
     return worst
 
 
-def write_dnerf_dataset(root: str, n_train=4, n_test=2, size=WIDTH):
+def write_dnerf_dataset(root: str, dev, n_train=4, n_test=2, size=WIDTH):
     """D-NeRF layout: transforms_{train,test}.json + RGBA PNGs, cameras on a
-    radius-4 orbit looking at the origin, `time` spread over [0, 1]."""
+    radius-4 orbit looking at the origin, `time` spread over [0, 1]. Each
+    image shows bench.py's scene (`bench_params`) translated by t·MOTION at
+    the view's time t, through the plain blend on a black background, from
+    the camera the port's reader makes of the view's pose: a scene that a
+    deform field can fit."""
+    import dataclasses
+    from d3gs_tpu_torch.data.cameras import camera_from_info
+    from d3gs_tpu_torch.data.dataset_readers import \
+        read_cameras_from_transforms
     from d3gs_tpu_torch.data.image_io import write_png
-    yy, xx = np.mgrid[0:size, 0:size] / (size - 1)
-
-    def c2w(angle, radius=4.0):
-        # inverse of the D-NeRF reader's pose flip
-        R = np.array([[math.cos(angle), 0, math.sin(angle)], [0, 1, 0],
-                      [-math.sin(angle), 0, math.cos(angle)]])
-        Rr = -R
-        Rr[:, 0] = -Rr[:, 0]
-        inv = np.eye(4)
-        inv[:3, :3] = Rr.T
-        inv[:3, 3] = -np.array([0.0, 0.0, radius])
-        return np.linalg.inv(inv)
+    from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.tools.exp_empty_views import orbit_c2w
+    state = gaussians_from_numpy(*bench_params(dev), 3, 3, dev)
+    motion = torch.tensor(MOTION, device=dev)
+    bg = torch.zeros(3, device=dev)
 
     for split, n in (("train", n_train), ("test", n_test)):
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for k in range(n):
-            t = k / max(n - 1, 1)
-            rgba = np.stack([xx, yy, np.full_like(xx, t),
-                             np.ones_like(xx)], -1)
+            # a placeholder until the reader has made the view's camera
             write_png(os.path.join(root, split, f"r_{k:03d}.png"),
-                      (rgba * 255).astype(np.uint8))
-            frames.append({"file_path": f"./{split}/r_{k:03d}", "time": t,
-                           "transform_matrix": c2w(k * 2 * math.pi / n
-                                                   + 0.3).tolist()})
-        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+                      np.zeros((size, size, 4), np.uint8))
+            frames.append({"file_path": f"./{split}/r_{k:03d}",
+                           "time": k / max(n - 1, 1),
+                           "transform_matrix": orbit_c2w(
+                               k * 2 * math.pi / n + 0.3).tolist()})
+        name = f"transforms_{split}.json"
+        with open(os.path.join(root, name), "w") as f:
             json.dump({"camera_angle_x": math.radians(60), "frames": frames},
                       f)
+        for k, info in enumerate(read_cameras_from_transforms(root, name,
+                                                              False)):
+            cam = camera_from_info(info, device=dev)
+            moved = dataclasses.replace(state, params=state.params._replace(
+                xyz=state.params.xyz + cam.fid * motion))
+            img = B.blend_forward_torch(*stages(moved, cam, None, bg)[:2], bg,
+                                        tiles_x=(size + 15) // 16,
+                                        tiles_y=(size + 15) // 16,
+                                        width=size, height=size).image
+            rgb = (255 * img.clamp(0, 1)).round().to(torch.uint8).cpu()
+            write_png(os.path.join(root, split, f"r_{k:03d}.png"),
+                      np.concatenate([rgb.numpy(), np.full(
+                          (size, size, 1), 255, np.uint8)], -1))
 
 
 def roofline(bytes_moved, flops, sfu):
@@ -1024,8 +1059,8 @@ def render_main_path(dev, data, mp) -> dict:
 class WatchHostEvents:
     """Counts, while active, the baseline loop's host events that leave no
     trace in its result: each opacity reset (and the largest opacity of a
-    live Gaussian after it) and each densify pass's large-screen prune (the
-    live Gaussians whose largest screen radius exceeds max_screen_size)."""
+    live Gaussian after it) and each densify pass's removals by rule, read
+    from `gaussians.pruned` around the pass (with its max_screen_size)."""
 
     def __enter__(self):
         from d3gs_tpu_torch.models import gaussians as G
@@ -1038,10 +1073,11 @@ class WatchHostEvents:
             return out
 
         def densify(state, **kw):
-            if kw["max_screen_size"] > 0:
-                big = (state.max_radii2d > kw["max_screen_size"]) & state.alive
-                self.prunes.append((kw["max_screen_size"], int(big.sum())))
-            return self.densify0(state, **kw)
+            before = dict(G.pruned)
+            out = self.densify0(state, **kw)
+            self.prunes.append((kw["max_screen_size"], {
+                k: G.pruned[k] - before[k] for k in before}))
+            return out
         G.reset_opacity, G.densify_and_prune = reset, densify
         return self
 
@@ -1054,89 +1090,120 @@ def train_main_path(dev, data, mp) -> dict:
     """Phase 4b: `python -m d3gs_tpu_torch.train` in-process at the bench
     width (bench.py's 43,132 points as the dataset's point cloud, 400x400,
     SH 3, the 8x256 Blender MLP), with flags that reach every branch of
-    the loop: warm-up then deform steps, two densify passes at a threshold
-    low enough to clone and split, an opacity reset at 10 and so the
-    large-screen prune in the passes after it, the SH ramp at 1000, a PSNR
-    evaluation and a checkpoint. The kernels' launch counts are read
-    around that call. Then the checkpoint is rendered through
-    `render.main`."""
+    the loop: warm-up then deform steps, densify passes at a threshold low
+    enough to clone and split (the first grows the buffer), an opacity
+    reset and the large-screen prune in the pass after it, the SH ramp at
+    1000, PSNR evaluations at 1 and 1000 and a checkpoint. The kernels'
+    launch counts are read around that call. The run must have learned
+    the scene: no step's render empty (`EmptyViewWatch`), the late
+    losses below the first, the mean test PSNR up
+    from the first evaluation's and at least TRAIN_PSNR_FLOOR, and every
+    view of the checkpoint's render (`render.main`) at least
+    VIEW_PSNR_FLOOR."""
     from d3gs_tpu_torch.data.image_io import read_png
     from d3gs_tpu_torch.data.ply import write_pointcloud_ply
     from d3gs_tpu_torch import render as R
     from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.tools.exp_empty_views import EmptyViewWatch
     from d3gs_tpu_torch.train.__main__ import main as train_main
     pts, cols = bench_points()
     write_pointcloud_ply(os.path.join(data, "points3d.ply"), pts,
                          np.round(cols * 255))
-    n_eval = 2
+    it = TRAIN_ITERATIONS
+    n_eval = 2 * 2
     B.launches = B.launches_bwd = 0
     t0 = time.perf_counter()
-    with WatchHostEvents() as events:
+    with WatchHostEvents() as events, EmptyViewWatch() as views:
         result = train_main([
             "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
-            "--iterations", str(TRAIN_ITERATIONS), "--warm_up", "6",
+            "--iterations", str(it), "--warm_up", "6",
             "--sh_degree", "3", "--densify_from_iter", "8",
-            "--densify_until_iter", "18", "--densification_interval", "4",
+            "--densification_interval", str(TRAIN_DENSIFY_INTERVAL),
+            "--densify_until_iter", str(TRAIN_DENSIFY_UNTIL),
             # far below this scene's screen-space gradients (phase 5 prints
-            # them; the default 7e-4 and 2e-5 clone nothing in 12 steps
-            # here), so that the passes clone, split and grow the buffer
+            # them; the default 7e-4 and 2e-5 clone nothing here), so that
+            # the passes clone, split and grow the buffer
             "--densify_grad_threshold", "1e-8",
-            "--opacity_reset_interval", "10",
-            "--test_iterations", str(TRAIN_ITERATIONS),
-            "--save_iterations", str(TRAIN_ITERATIONS),
+            "--opacity_reset_interval", str(TRAIN_RESET_INTERVAL),
+            "--test_iterations", "1", str(it), "--save_iterations", str(it),
             "--sequence_length", "4"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
-    log(f"[4b] train.main: {TRAIN_ITERATIONS} iterations in {wall:.1f} s; "
+    log(f"[4b] train.main: {it} iterations in {wall:.1f} s; "
         f"kernel launches {launches}; losses {result.losses}; PSNR "
         f"{result.test_psnrs}; densify (iteration, alive, capacity before, "
-        f"alive, capacity after) {result.densify_events}; best PSNR "
-        f"{result.best_psnr} at {result.best_iteration}; opacity resets "
-        f"(largest live opacity after) {events.resets}; large-screen "
-        f"prunes (max_screen_size, Gaussians above it) {events.prunes}; "
-        f"active SH degree {result.state.active_sh_degree}")
-    # the SH ramp (every 1000), the reset at 10 (opacities <= 0.01) and
-    # the passes after it pruning Gaussians above 20 px
+        f"alive, capacity after) {result.densify_events}; opacity resets "
+        f"(largest live opacity after) {events.resets}; removals by pass "
+        f"(max_screen_size, Gaussians removed by rule) {events.prunes}; "
+        f"active SH degree {result.state.active_sh_degree}; steps that "
+        f"rendered no pixel {len(views.empty)}")
+    # the SH ramp (every 1000), the reset (opacities <= 0.01) and the pass
+    # after it removing Gaussians over 20 px
     if result.state.active_sh_degree != 1:
         raise AssertionError("the SH ramp did not fire at 1000: active "
                              f"degree {result.state.active_sh_degree}")
     if len(events.resets) != 1 or not events.resets[0] <= 0.0101:
         raise AssertionError(f"opacity reset: {events.resets}")
-    if not events.prunes or not any(n > 0 for _, n in events.prunes):
+    if not any(size > 0 and n["oversized"] > 0 for size, n in events.prunes):
         raise AssertionError(f"no large-screen prune: {events.prunes}")
-    if launches["blend_bwd"] < TRAIN_ITERATIONS:
+    if launches["blend_bwd"] < it:
         raise AssertionError(f"blend_bwd launched {launches['blend_bwd']} "
-                             f"times for {TRAIN_ITERATIONS} train steps")
-    if launches["blend_fwd"] < TRAIN_ITERATIONS + n_eval:
+                             f"times for {it} train steps")
+    if launches["blend_fwd"] < it + n_eval:
         raise AssertionError(f"blend_fwd launched {launches['blend_fwd']} "
-                             f"times for {TRAIN_ITERATIONS} steps and "
-                             f"{n_eval} evaluation renders")
+                             f"times for {it} steps and {n_eval} "
+                             f"evaluation renders")
     values = [v for _, v in result.losses] + list(result.test_psnrs.values())
     if not (values and all(math.isfinite(v) for v in values)
-            and TRAIN_ITERATIONS in result.test_psnrs):
+            and it in result.test_psnrs):
         raise AssertionError(f"loss or PSNR not finite: {result.losses}, "
                              f"{result.test_psnrs}")
     # the low threshold makes the passes clone and split
     if not any(n1 != n0 for _, n0, _, n1, _ in result.densify_events):
         raise AssertionError(f"densification changed no alive count: "
                              f"{result.densify_events}")
-    if result.state.num_alive == 0:
-        raise AssertionError("every Gaussian was pruned")
+    # a deform field that throws every Gaussian out of a view leaves that
+    # view no gradient to recover by (tools/exp_empty_views.py)
+    if views.empty:
+        raise AssertionError(f"{len(views.empty)} steps rendered no pixel, "
+                             f"the first at {views.empty[:4]}; the state "
+                             f"behind them: {views.details}")
+    # learned, not diverged: the losses of the last 200 steps' logs below
+    # the first, the test PSNR up from the first evaluation's and at least
+    # the floor
+    late = [v for i, v in result.losses if i > it - 200]
+    if not (late and max(late) < result.losses[0][1]):
+        raise AssertionError(f"the late losses {late} are not below the "
+                             f"first {result.losses[0]}")
+    if not (result.test_psnrs[it] >= TRAIN_PSNR_FLOOR
+            and result.test_psnrs[it] > result.test_psnrs[1]):
+        raise AssertionError(f"test PSNR {result.test_psnrs} (floor "
+                             f"{TRAIN_PSNR_FLOOR} dB at {it})")
 
     t0 = time.perf_counter()
     out = R.main(["-m", mp, "--mode", "render"])
     torch.cuda.synchronize()
-    it = TRAIN_ITERATIONS
-    imgs = [read_png(os.path.join(mp, split, f"ours_{it}", "renders",
-                                  f"{i:05d}.png"))
-            for split, n in (("train", 4), ("test", 2)) for i in range(n)]
+    views = [(split, i) for split, n in (("train", 4), ("test", 2))
+             for i in range(n)]
+    imgs = {kind: [read_png(os.path.join(mp, split, f"ours_{it}", kind,
+                                         f"{i:05d}.png")).astype(np.float64)
+                   / 255 for split, i in views]
+            for kind in ("renders", "gt")}
     if out != {"iteration": it, "views": 6} or any(
-            im.shape != (HEIGHT, WIDTH, 3) for im in imgs):
+            im.shape != (HEIGHT, WIDTH, 3) for im in imgs["renders"]):
         raise AssertionError(f"render of the trained model: {out}")
+    def psnr(a, b):
+        return float(-10 * np.log10(max(np.mean((a - b) ** 2), 1e-20)))
+    psnrs = [psnr(r, g) for r, g in zip(imgs["renders"], imgs["gt"])]
     log(f"[4b] render.main of the checkpoint: {out} in "
         f"{time.perf_counter() - t0:.1f} s; mean pixel of the renders "
-        f"{[round(float(im.mean()), 1) for im in imgs]}")
+        f"{[round(float(255 * im.mean()), 1) for im in imgs['renders']]}, "
+        f"PSNR of each against its view {[round(p, 2) for p in psnrs]} "
+        f"(of a black render {[round(psnr(0, g), 2) for g in imgs['gt']]})")
+    if min(psnrs) < VIEW_PSNR_FLOOR:
+        raise AssertionError(f"a view of the checkpoint renders below "
+                             f"{VIEW_PSNR_FLOOR} dB: {psnrs}")
     return launches
 
 
@@ -1426,7 +1493,8 @@ def distill_path(dev, data, teacher, mp) -> dict:
     """Phase 4g: `python -m d3gs_tpu_torch.train_synth_gau` with 4b's
     checkpoint as the teacher (its Gaussians and 8x256 Blender MLP), the
     8x256 Blender ODE student with the adaptive solver, 5 iterations and a
-    PSNR evaluation at 5."""
+    PSNR evaluation at 5; every trajectory loss below
+    DISTILL_LOSS_BOUND."""
     from d3gs_tpu_torch.models.deform import ode as O
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.train_synth_gau import main as distill_main
@@ -1459,6 +1527,10 @@ def distill_path(dev, data, teacher, mp) -> dict:
             and DISTILL_ITERATIONS in result.test_psnrs):
         raise AssertionError(f"4g: loss or PSNR not finite: {result.losses},"
                              f" {result.test_psnrs}")
+    if not all(v < DISTILL_LOSS_BOUND for _, v in result.losses):
+        raise AssertionError(f"4g: the trajectory loss {result.losses} is "
+                             f"not below {DISTILL_LOSS_BOUND}: the teacher "
+                             f"moves further than its scene")
     return {"launches": launches, "counts": counts, "wall_s": wall}
 
 
@@ -1569,34 +1641,6 @@ def bf16_path(dev, data, mp) -> dict:
         log(f"[4i] profile of the MLP's forward + backward in {dtype}: "
             f"{json.dumps(profile(fwd_bwd, calls=5, top=10))}")
     return {"launches": launches, "mlp": mlp}
-
-
-def contracted_times(contracted_fn, records, bins, bg, grid) -> dict:
-    """Phase 3: the forward with `gauss_power` contracted, on the bench
-    scene: against the plain version (as `compare_blend` holds the shipped
-    one), and its time beside the shipped (pinned) forward's, launched by
-    turns into one preallocated output (CUDA events, 200 launches a turn,
-    two turns each)."""
-    from d3gs_tpu_torch.ops import _build
-    from d3gs_tpu_torch.ops import blend as B
-    gid = B.sorted_gids(bins)
-    shipped = _build.entry("blend_fwd", B._FWD_ARGTYPES)
-    got = forward_with(contracted_fn, records, gid, bins.starts, bg, **grid)
-    ref = B.blend_forward_torch(records, bins, bg, **grid)
-    err = float((got.image - ref.image).abs().max())
-    if not err <= ATOL + RTOL * float(ref.image.abs().max()):
-        raise AssertionError(f"contracted forward differs from plain by {err}")
-    ms = {"shipped": [], "contracted": []}
-    for _ in range(2):
-        for name, fn in (("shipped", shipped), ("contracted", contracted_fn)):
-            ms[name].append(cuda_ms(lambda: forward_with(
-                fn, records, gid, bins.starts, bg, **grid, out=got), 200))
-    out = {"max_abs_err_vs_plain": err, "ms": ms,
-           "shipped_over_contracted": (sum(ms["shipped"])
-                                       / sum(ms["contracted"]))}
-    log(f"[3] forward with gauss_power contracted, bench scene: "
-        f"{json.dumps(out)}")
-    return out
 
 
 def blend_kernel_times(records, bins, bg, grid) -> dict:
@@ -2089,7 +2133,6 @@ def main() -> int:
     for name, rec_s, bins_s in edges:
         compare_blend(name, rec_s, bins_s, bg1, small)
         compare_blend_bwd(name, rec_s, bins_s, bg1, small, BWD_TOL[name])
-    contracted = contracted_times(contracted_fn, records, bins, bg, grid)
     # ---- 3c. the row kernels vs plain at the tools' shapes ---------------
     rows_in = row_inputs(dev)
     row_errs = compare_rows(rows_in)
@@ -2097,7 +2140,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="d3gs_smoke_") as tmp:
         # ---- 4. main path: render ---------------------------------------
         data = os.path.join(tmp, "data")
-        write_dnerf_dataset(data, size=WIDTH)
+        write_dnerf_dataset(data, dev, size=WIDTH)
         render_result = render_main_path(dev, data, os.path.join(tmp,
                                                                  "model"))
         # ---- 4b. main path: train ---------------------------------------
@@ -2107,7 +2150,7 @@ def main() -> int:
         tool_launches = tool_paths()
         # ---- 4d. main path: the flagship ODE trainer --------------------
         data_f = os.path.join(tmp, "data_flagship")
-        write_dnerf_dataset(data_f, *FLAGSHIP_VIEWS, size=WIDTH)
+        write_dnerf_dataset(data_f, dev, *FLAGSHIP_VIEWS, size=WIDTH)
         launches = flagship_main_path(dev, data_f,
                                       os.path.join(tmp, "flagship"))
         # ---- 4e / 4f. the adaptive solver in the flagship trainer -------
@@ -2161,10 +2204,6 @@ def main() -> int:
         f"{ft['rk4_forward_evaluations_per_step']} backward; bf16 / f32 MLP "
         f"fwd+bwd {bf16['mlp']['bf16_over_f32_fwd_bwd']:.3f} "
         f"({json.dumps(bf16['mlp']['ms'])}); {smi}")
-    log(f"[5] gauss_power pinned (shipped) against contracted: "
-        f"{json.dumps(contracted)}; edge flips shipped "
-        f"{flips['shipped']['flips']}, contracted "
-        f"{flips['contracted']['flips']}")
 
     bounds = blend_bounds(records, bins, grid, work)
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = (

@@ -29,6 +29,13 @@ from ..ops.transforms import inverse_sigmoid, quat_normalize, quat_to_rotmat_col
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                "opacity")
 
+# Gaussians removed by `densify_and_prune` since import (or since a caller
+# last reset them), by the rule that removed them: `low_opacity`, or
+# `oversized` (over max_screen_size on screen or 0.1·extent in the world,
+# and not low in opacity); split sources, replaced by a child, count in
+# neither
+pruned = {"low_opacity": 0, "oversized": 0}
+
 
 class GaussianParams(NamedTuple):
     xyz: torch.Tensor
@@ -287,12 +294,16 @@ def densify_and_prune(state: GaussianState, *, max_grad: float,
     clone_sel = over_grad & (max_scale <= percent_dense * extent)
     split_sel = over_grad & (max_scale > percent_dense * extent)
 
-    prune_sel = torch.sigmoid(p.opacity[:, 0]) < min_opacity
+    low = torch.sigmoid(p.opacity[:, 0]) < min_opacity
+    prune_sel = low
     if max_screen_size > 0:
         prune_sel = (prune_sel | (state.max_radii2d > max_screen_size)
                      | (max_scale > 0.1 * extent))
     prune_sel = prune_sel & alive
     alive_after_remove = alive & ~(prune_sel | split_sel)
+    removed = prune_sel & ~split_sel
+    pruned["low_opacity"] += int((removed & low).sum())
+    pruned["oversized"] += int((removed & ~low).sum())
 
     # free slots: dead rows (removed ones included) other than split sources
     free = ~alive_after_remove & ~split_sel

@@ -176,10 +176,27 @@ def test_densify_and_prune(max_screen_size, n, cap):
     kw = dict(max_grad=0.0007, min_opacity=0.005, extent=2.0,
               max_screen_size=max_screen_size, percent_dense=0.01)
     js2 = JG.densify_and_prune(js, key, **kw)
+    before = dict(TG.pruned)
     ts2 = TG.densify_and_prune(ts, noise=torch.from_numpy(noise), **kw)
     assert_states_close(ts2, js2)
     grown = int(js2.alive.sum()) - int(js.alive.sum())
     assert grown != 0
+    # the removals by rule (`pruned`), counted here from the reference
+    # rule: split sources are replaced, not removed
+    alive = np.asarray(js.alive)
+    denom = np.asarray(js.denom)
+    grads = np.where(denom > 0, np.asarray(js.grad_accum)
+                     / np.maximum(denom, 1), 0.0)
+    max_scale = np.exp(np.asarray(js.params.scaling)).max(-1)
+    split = alive & (grads >= kw["max_grad"]) & (
+        max_scale > kw["percent_dense"] * kw["extent"])
+    low = 1 / (1 + np.exp(-np.asarray(js.params.opacity)[:, 0])) < 0.005
+    big = ((np.asarray(js.max_radii2d) > max_screen_size)
+           | (max_scale > 0.1 * kw["extent"])) & (max_screen_size > 0)
+    want = {"low_opacity": int((alive & low & ~split).sum()),
+            "oversized": int((alive & big & ~low & ~split).sum())}
+    assert {k: TG.pruned[k] - before[k] for k in want} == want
+    assert (want["oversized"] > 0) == (max_screen_size > 0)
 
 
 def test_reset_opacity_grow_capacity_oneup():
