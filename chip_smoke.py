@@ -64,6 +64,13 @@ Phases (any failure exits non-zero):
      4i. the baseline CLI with `--deform_dtype bfloat16`, 10 iterations
          and a render of its checkpoint, and `tools/exp_r5_mlp` (the MLP's
          time in float32 and bfloat16);
+     4j. evaluation on 4b's checkpoint: `render.main` in the five
+         interpolation modes (time, view, pose, all, original) at their
+         default frame counts, one frame each held against the plain blend,
+         `--trajectories`, `metrics.main` without and with (random) LPIPS
+         weights held against the CPU's metrics on the same PNGs,
+         `full_eval.main` on one scene (200 iterations), and the camera
+         resize against `data/resize.py`;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, both blend
      kernels alone (CUDA events and profiler device time) on the bench
@@ -1643,6 +1650,228 @@ def bf16_path(dev, data, mp) -> dict:
     return {"launches": launches, "mlp": mlp}
 
 
+# 4j: the render modes at the JAX defaults: mode -> (output directory,
+# frames); `view` renders `wander_path`'s 60
+EVAL_MODES = {"time": ("interpolate", 150), "view": ("interpolate_view", 60),
+              "pose": ("interpolate_pose", 150),
+              "all": ("interpolate_all", 150),
+              "original": ("interpolate_hyper_view", 150)}
+# 4j: the card's metrics against the CPU's on the same PNGs: PSNR (dB) and
+# SSIM absolute, LPIPS relative
+EVAL_TOL = {"PSNR": 1e-4, "SSIM": 1e-5, "LPIPS": 1e-4}
+FULL_EVAL_ITERATIONS = 200       # 4j: full_eval's training run
+
+
+def _mode_cameras(RM, views):
+    """The cameras each mode of `render.main` renders, at its defaults."""
+    v = views[0]
+    return {"time": RM.time_cameras(v),
+            "view": RM.view_cameras(v, *RM.reference_rt(v)),
+            "pose": RM.pose_cameras(v, views[-1]),
+            "all": RM.all_cameras(v), "original": RM.original_cameras(views)}
+
+
+def _metrics_close(card: dict, cpu: dict, what: str) -> dict:
+    """The largest card-vs-CPU gap per metric over `card` (a results.json
+    or per_view.json dict); raises beyond EVAL_TOL."""
+    gaps = {}
+    for method, vals in cpu.items():
+        for key, tol in EVAL_TOL.items():
+            ref, got = vals[key], card[method][key]
+            if not isinstance(ref, dict):
+                ref, got = {"mean": ref}, {"mean": got}
+            if ref.keys() != got.keys():
+                raise AssertionError(f"4j {what} {key}: {got} vs {ref}")
+            for view, r in ref.items():
+                g = got[view]
+                if r is None or g is None:
+                    if r is not g:
+                        raise AssertionError(f"4j {what} {key} {view}: "
+                                             f"{g} vs {r}")
+                    continue
+                gap = abs(g - r) / (abs(r) if key == "LPIPS" else 1.0)
+                gaps[key] = max(gaps.get(key, 0.0), gap)
+                if not gap <= tol:
+                    raise AssertionError(f"4j {what} {key} {view}: card {g} "
+                                         f"vs CPU {r} (tolerance {tol})")
+    return gaps
+
+
+def eval_path(dev, data, mp, root) -> dict:
+    """Phase 4j: the evaluation path on 4b's checkpoint (`mp`, ~78,500
+    Gaussians, the 8x256 Blender MLP, 400x400, SH 3): `render.main` in each
+    of the five interpolation modes at the JAX defaults (each mode's frame
+    count in renders/ and depth/, at least one forward launch a frame, one
+    frame held against the plain blend within 1 of 255, the frame time with
+    and without the PNG writes), `--trajectories` ((150, N_alive, 3)),
+    `metrics.main` without LPIPS weights (LPIPS null) and with random ones
+    (LPIPS_WEIGHTS), each held against `evaluate_model_paths(...,
+    device="cpu")` on the same PNGs, LPIPS's time per 400x400 pair,
+    `full_eval.main` on a copy of the dataset as <root>/lego, and the camera
+    resize (`resolution=2`) against `data/resize.py` on the host."""
+    import shutil
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch import full_eval
+    from d3gs_tpu_torch import metrics as M
+    from d3gs_tpu_torch import render as R
+    from d3gs_tpu_torch.data.cameras import camera_from_info
+    from d3gs_tpu_torch.data.dataset_readers import \
+        read_cameras_from_transforms
+    from d3gs_tpu_torch.data.image_io import read_png
+    from d3gs_tpu_torch.data.resize import resize
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
+                                                     load_deform_weights)
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.render_eval import lpips as L
+    from d3gs_tpu_torch.render_eval import render_modes as RM
+    from d3gs_tpu_torch.render_eval.metrics import evaluate_model_paths
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    t_start = time.perf_counter()
+    os.makedirs(root)
+    it = TRAIN_ITERATIONS
+    cfg = C.ModelParams(**C.load_cfg_args(mp))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
+    state = scene.gaussians
+    fld = load_deform_weights(mp, create_deform_field(
+        pick_field_spec(cfg, C.OptimizationParams()), device=dev))
+    bg = torch.zeros(3, device=dev)
+    render_at = RM.make_render_fn(state, fld, C.PipelineParams())
+    cams = _mode_cameras(RM, scene.get_test_cameras())
+    n_alive = int(state.alive.sum())
+    launches, modes = {}, {}
+    for mode, (sub, n) in EVAL_MODES.items():
+        B.launches = 0
+        out = R.main(["-m", mp, "--mode", mode])
+        torch.cuda.synchronize()
+        launches[mode] = B.launches
+        base = os.path.join(mp, "test", f"{sub}_{it}")
+        counts = [len([f for f in os.listdir(os.path.join(base, d))
+                       if f.endswith(".png")]) for d in ("renders", "depth")]
+        if out.get("frames") != n or counts != [n, n] or len(cams[mode]) != n:
+            raise AssertionError(f"4j {mode}: {out}, PNGs {counts}, "
+                                 f"{len(cams[mode])} cameras, want {n}")
+        if launches[mode] < n:
+            raise AssertionError(f"4j {mode}: blend_fwd launched "
+                                 f"{launches[mode]} times for {n} frames")
+        k = n // 2
+        plain = B.blend_forward_torch(
+            *stages(state, cams[mode][k], fld, bg)[:2], bg,
+            tiles_x=(WIDTH + 15) // 16, tiles_y=(HEIGHT + 15) // 16,
+            width=WIDTH, height=HEIGHT)
+        want = (255 * plain.image.clamp(0, 1)).to(torch.uint8).cpu().numpy()
+        got = read_png(os.path.join(base, "renders", f"{k:05d}.png"))
+        diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+        # the same frames without the PNG writes
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for cam in cams[mode]:
+            render_at(state, fld, cam, bg)
+        end.record()
+        torch.cuda.synchronize()
+        modes[mode] = {"frames": n, "launches": launches[mode],
+                       "frame_diff_of_255": diff, "coverage": round(float(
+                           (got.max(axis=-1) > 0).mean()), 4),
+                       "ms_per_frame_with_png": 1e3 * out["seconds"] / n,
+                       "ms_per_frame_render_only":
+                           start.elapsed_time(end) / n}
+        log(f"[4j] render.main --mode {mode}: {json.dumps(modes[mode])}")
+        if diff > 1:
+            raise AssertionError(f"4j {mode}: frame {k} disagrees with the "
+                                 f"plain blend by {diff} of 255")
+
+    B.launches = 0
+    out = R.main(["-m", mp, "--mode", "render", "--trajectories"])
+    torch.cuda.synchronize()
+    launches["trajectories"] = B.launches
+    traj = np.load(os.path.join(mp, "trajectories.npy"), mmap_mode="r")
+    traj_info = {**out["trajectories"], "bytes": os.path.getsize(
+        os.path.join(mp, "trajectories.npy"))}
+    log(f"[4j] render.main --trajectories: {json.dumps(traj_info)} on "
+        f"{n_alive} Gaussians")
+    if traj.shape != (150, n_alive, 3) or not np.isfinite(traj[-1]).all():
+        raise AssertionError(f"4j: trajectories {traj.shape}")
+
+    saved_env = os.environ.pop("LPIPS_WEIGHTS", None)
+    if os.path.exists("lpips_vgg.npz"):
+        raise AssertionError("4j: ./lpips_vgg.npz exists; the run without "
+                             "weights needs none")
+    try:
+        metrics = {}
+        for tag, npz in (("no_weights", None), ("random_weights", os.path.join(
+                root, "lpips_random.npz"))):
+            if npz:
+                os.environ["LPIPS_WEIGHTS"] = L.write_random_weights(npz, 0)
+            t0 = time.perf_counter()
+            card = M.main(["-m", mp])[mp]
+            card_s = time.perf_counter() - t0
+            with open(os.path.join(mp, "per_view.json")) as f:
+                card_pv = json.load(f)
+            cpu = evaluate_model_paths([mp], device="cpu")[mp]
+            with open(os.path.join(mp, "per_view.json")) as f:
+                cpu_pv = json.load(f)
+            if list(card) != [f"ours_{it}"] or (
+                    card[f"ours_{it}"]["LPIPS"] is None) != (npz is None):
+                raise AssertionError(f"4j metrics ({tag}): {card}")
+            gaps = {**_metrics_close(card, cpu, f"{tag} results"),
+                    **{f"{k}_per_view": v for k, v in _metrics_close(
+                        card_pv, cpu_pv, f"{tag} per_view").items()}}
+            metrics[tag] = {"card": card[f"ours_{it}"], "seconds": card_s,
+                            "card_vs_cpu": gaps}
+            log(f"[4j] metrics.main ({tag}): {json.dumps(metrics[tag])}")
+        params = L.load_params(device=dev)
+        a, b = (torch.from_numpy(read_png(os.path.join(
+            mp, "test", f"ours_{it}", d, "00000.png")).astype(np.float32)
+            / 255).to(dev) for d in ("renders", "gt"))
+        lpips_ms = cuda_ms(lambda: L.lpips(params, a, b), reps=20)
+        log(f"[4j] LPIPS (VGG16, random weights) per {a.shape[1]}x"
+            f"{a.shape[0]} pair: "
+            f"{lpips_ms:.3f} ms")
+    finally:
+        os.environ.pop("LPIPS_WEIGHTS", None)
+        if saved_env is not None:
+            os.environ["LPIPS_WEIGHTS"] = saved_env
+
+    lego = os.path.join(root, "dnerf", "lego")
+    shutil.copytree(data, lego)
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    paths = full_eval.main(["--dnerf_path", os.path.join(root, "dnerf"),
+                            "--scenes", "lego", "--iterations",
+                            str(FULL_EVAL_ITERATIONS), "--output_path",
+                            os.path.join(root, "eval")])
+    torch.cuda.synchronize()
+    launches["full_eval"] = {"blend_fwd": B.launches,
+                             "blend_bwd": B.launches_bwd}
+    with open(os.path.join(paths[0], "results.json")) as f:
+        fe = json.load(f)
+    fe_psnr = fe.get(f"ours_{FULL_EVAL_ITERATIONS}", {}).get("PSNR")
+    log(f"[4j] full_eval.main (lego, {FULL_EVAL_ITERATIONS} iterations): "
+        f"{json.dumps(fe)} in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches['full_eval']}")
+    if not (fe_psnr is not None and math.isfinite(fe_psnr)) or \
+            launches["full_eval"]["blend_bwd"] < FULL_EVAL_ITERATIONS:
+        raise AssertionError(f"4j full_eval: {fe}, {launches['full_eval']}")
+
+    info = read_cameras_from_transforms(data, "transforms_test.json",
+                                        False)[0]
+    cam = camera_from_info(info, device=dev, resolution=2)
+    half = (round(info.width / 2), round(info.height / 2))
+    host = resize((np.clip(info.image, 0, 1) * 255).astype(np.uint8),
+                  half).astype(np.float32) / 255.0
+    if (cam.width, cam.height) != half or not np.array_equal(
+            cam.image.cpu().numpy(), host):
+        raise AssertionError(f"4j resize: {cam.width}x{cam.height}")
+    seconds = time.perf_counter() - t_start
+    log(f"[4j] camera_from_info(resolution=2): {info.width}x{info.height} "
+        f"-> {cam.width}x{cam.height}, equal to data/resize.py on the host; "
+        f"4j took {seconds:.1f} s")
+    return {"launches": launches, "modes": modes, "trajectories": traj_info,
+            "metrics": metrics, "lpips_ms": lpips_ms, "full_eval": fe,
+            "seconds": seconds}
+
+
 def blend_kernel_times(records, bins, bg, grid) -> dict:
     """Phase 5: both blend kernels alone on one scene, launched into
     preallocated outputs (so the wrappers' host work, checks and
@@ -1847,11 +2076,19 @@ def row_timings(inp: dict) -> dict:
     indices name) and their bound."""
     from d3gs_tpu_torch.ops import rows as R
 
+    def device_ms(fn, tries=5):
+        # the profiler now and then records no kernel of a call (it read
+        # index_select's device time as 0 in one run): trace again
+        for _ in range(tries):
+            ms = profile(fn, calls=50, top=2)["device_ms_per_call"]
+            if ms > 0:
+                return ms
+        raise AssertionError(f"torch.profiler read no device time in "
+                             f"{tries} traces")
+
     def timed(kernel, library, plain, plain_reps=20):
-        return {"ms": profile(kernel, calls=50, top=2)["device_ms_per_call"],
-                "event_ms": cuda_ms(kernel, 200),
-                "library_ms": profile(library, calls=50,
-                                      top=2)["device_ms_per_call"],
+        return {"ms": device_ms(kernel), "event_ms": cuda_ms(kernel, 200),
+                "library_ms": device_ms(library),
                 "library_event_ms": cuda_ms(library, 200),
                 "plain_ms": cuda_ms(plain, plain_reps, warmup=1)}
 
@@ -2168,11 +2405,15 @@ def main() -> int:
         synth = synth_paths(dev, os.path.join(tmp, "synth"))
         # ---- 4i. the bf16 deform MLP ------------------------------------
         bf16 = bf16_path(dev, data, os.path.join(tmp, "bf16"))
+        # ---- 4j. evaluation on 4b's checkpoint --------------------------
+        eval_ = eval_path(dev, data, os.path.join(tmp, "trained"),
+                          os.path.join(tmp, "eval"))
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
         f"{launches}, adaptive flagship {adaptive['launches']}, "
         f"simple_start {simple_start['launches']}, distill "
-        f"{distill['launches']}, bf16 {bf16['launches']}")
+        f"{distill['launches']}, bf16 {bf16['launches']}, eval "
+        f"{json.dumps(eval_['launches'])}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,

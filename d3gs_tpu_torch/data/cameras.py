@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..ops.camera_math import perspective_projection, world_to_view
+from .resize import resize
 
 ZNEAR = 0.01
 ZFAR = 100.0
@@ -84,8 +85,9 @@ def camera_from_info(info: CameraInfo, *, device: str | torch.device,
                      resolution: int = -1) -> Camera:
     """Device Camera under the reference's resolution policy
     (utils/camera_utils.py:21-57: -1 => 1.6k-width clamp; 1/2/4/8 =>
-    divisors; other positive => target width). A policy that asks for a
-    resize raises: the port has no image resampler yet."""
+    divisors; other positive => target width). A resize goes through
+    `data/resize.py`, equal to the PIL `Image.resize(res)` that the JAX
+    package calls: the image truncated to uint8, resampled bicubic, / 255."""
     orig_w, orig_h = info.width, info.height
     if resolution in (1, 2, 4, 8):
         res = (round(orig_w / (resolution_scale * resolution)),
@@ -97,11 +99,11 @@ def camera_from_info(info: CameraInfo, *, device: str | torch.device,
             global_down = orig_w / resolution
         s = float(global_down) * float(resolution_scale)
         res = (int(orig_w / s), int(orig_h / s))
+    image = info.image
     if (res[0], res[1]) != (orig_w, orig_h):
-        raise NotImplementedError(
-            f"resizing {orig_w}x{orig_h} -> {res[0]}x{res[1]} is not ported "
-            "yet (ROADMAP.md, Queue 1: readers); render at native size")
+        arr8 = (np.clip(image, 0, 1) * 255).astype(np.uint8)
+        image = resize(arr8, res).astype(np.float32) / 255.0
     V = world_to_view(info.R, info.T, translate=trans, scale=scale).T
     return camera_from_matrices(V, info.fovx, info.fovy, fid=info.fid,
-                                image=info.image, device=device,
+                                image=image, device=device,
                                 image_name=info.image_name, uid=info.uid)

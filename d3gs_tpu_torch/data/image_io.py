@@ -4,6 +4,11 @@ Counterpart of the JAX package's image I/O (`dataset_readers._load_image`,
 `render_modes._save_png`), which goes through Pillow/imageio; the port
 carries its own codec so that it needs neither. It covers what those paths
 use: 8-bit, non-interlaced gray, RGB and RGBA, all five row filters on read.
+
+PNG is the one format the port decodes. The JAX package reads any format
+Pillow reads; here a JPEG (COLMAP sets such as MipNeRF-360, Tanks&Temples
+and Deep Blending usually are) raises a ValueError that names the format
+and says to convert the set to PNG, and so does any other format.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 6: 4}          # PNG color type -> samples per pixel
 
 
@@ -59,8 +65,13 @@ def read_png(path: str) -> np.ndarray:
     """-> uint8 array (H, W) for gray, (H, W, 3|4) for RGB/RGBA."""
     with open(path, "rb") as f:
         data = f.read()
+    if data[:3] == _JPEG_SIGNATURE:
+        raise ValueError(
+            f"{path}: a JPEG image; the port decodes PNG only (a JPEG decoder "
+            "is queued in ROADMAP.md) - convert the data set's images to PNG")
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{path}: neither PNG nor JPEG; the port decodes PNG "
+                         "only - convert the data set's images to PNG")
     pos, idat, header = 8, [], None
     while pos < len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])

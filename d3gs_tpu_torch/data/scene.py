@@ -16,7 +16,9 @@ from .. import config as cfg
 from ..models.gaussians import (GaussianState, create_from_pcd,
                                 gaussians_from_numpy, round_capacity)
 from .cameras import Camera, CameraInfo, camera_from_info
-from .dataset_readers import SceneData, read_nerf_synthetic
+from .dataset_readers import (SceneData, read_colmap_scene, read_dtu_scene,
+                              read_dynamic360_scene, read_nerf_synthetic,
+                              read_nerfies_scene, read_plenoptic_scene)
 from .ply import read_ply_columns, write_ply
 
 
@@ -33,13 +35,20 @@ def sniff_dataset_type(source_path: str) -> str:
 
 
 def load_scene_data(model: cfg.ModelParams) -> SceneData:
+    """The sniffed reader with the JAX package's arguments."""
     kind = sniff_dataset_type(model.source_path)
+    src = model.source_path
+    if kind == "colmap":
+        return read_colmap_scene(src, model.images, model.eval)
     if kind == "blender":
-        return read_nerf_synthetic(model.source_path, model.white_background,
-                                   model.eval)
-    raise NotImplementedError(
-        f"dataset type {kind!r} is not ported yet (ROADMAP.md, Queue 1: "
-        "readers); the port reads Blender/D-NeRF scenes")
+        return read_nerf_synthetic(src, model.white_background, model.eval)
+    if kind == "nerfies":
+        return read_nerfies_scene(src, model.eval)
+    if kind == "dtu":
+        return read_dtu_scene(src)
+    if kind == "plenoptic":
+        return read_plenoptic_scene(src, model.eval, 24)
+    return read_dynamic360_scene(src)
 
 
 def search_for_max_iteration(folder: str) -> int:

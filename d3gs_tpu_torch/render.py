@@ -1,17 +1,28 @@
 """CLI: offline rendering of a trained model on the card (counterpart of the
-repository's `render.py`, `--mode render` and `--benchmark`).
+repository's `render.py`).
 
-    python -m d3gs_tpu_torch.render -m <model_dir> --mode render [--benchmark]
-        [--device cuda|cpu]
+    python -m d3gs_tpu_torch.render -m <model_dir>
+        [--mode render|time|view|pose|all|original] [--trajectories]
+        [--benchmark] [--device cuda|cpu]
 
-It renders every train/test view of the model's latest (or `--iteration`)
-checkpoint at the view's time and writes renders/, depth/ and gt/ PNGs.
-`--benchmark` then times frames of the first test view with CUDA events
-after a warm-up and prints FPS and Mrays/s; it needs the card.
+`--mode render` renders every train/test view of the model's latest (or
+`--iteration`) checkpoint at the view's time and writes renders/, depth/
+and gt/ PNGs. The other modes render the first test view's time sweep
+(`time`, 150 frames), the wander path around it (`view`, 60), a spherical
+orbit with time sweeping (`all`, 150), a lerp between the first and last
+test poses (`pose`, 150) and the piecewise lerp through every test pose
+with time sweeping (`original`, 150), each into test/<mode dir>/renders
+and depth (`render_eval/render_modes.py`). `--trajectories` then writes
+trajectories.npy (T, N, 3) and timestamps.npy to the model directory and
+plots trajectories.png where matplotlib imports. `--benchmark` times frames
+of the first test view with CUDA events after a warm-up and prints FPS and
+Mrays/s; it needs the card.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 import torch
 
@@ -64,15 +75,13 @@ def main(argv=None) -> dict:
     parser.add_argument("--mode", default="render",
                         choices=["render", "time", "view", "all", "pose",
                                  "original"])
+    parser.add_argument("--trajectories", action="store_true",
+                        help="also export + plot Gaussian trajectories")
     parser.add_argument("--benchmark", action="store_true",
                         help="render-only FPS benchmark on the card")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
     args = C.get_combined_args(parser, argv)
-    if args.mode != "render":
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP.md, Queue 1: "
-            "render modes and eval)")
     device = resolve_device(args.device)
 
     model_cfg = C.extract_group(args, C.ModelParams)
@@ -103,17 +112,48 @@ def main(argv=None) -> dict:
     test_views = scene.get_test_cameras() or train_views[:5]
     mp = model_cfg.model_path
     result = {"iteration": iteration, "views": 0}
-    if not args.skip_train:
-        RM.render_split(mp, "train", iteration, train_views, state, field,
-                        render_at, bg)
-        result["views"] += len(train_views)
-    if not args.skip_test:
-        RM.render_split(mp, "test", iteration, test_views, state, field,
-                        render_at, bg)
-        result["views"] += len(test_views)
+    common = (mp, "test", iteration)
+    t0 = time.perf_counter()
+    if args.mode == "render":
+        if not args.skip_train:
+            RM.render_split(mp, "train", iteration, train_views, state, field,
+                            render_at, bg)
+            result["views"] += len(train_views)
+        if not args.skip_test:
+            RM.render_split(mp, "test", iteration, test_views, state, field,
+                            render_at, bg)
+            result["views"] += len(test_views)
+    elif args.mode == "time":
+        result["frames"] = RM.interpolate_time(*common, test_views, state,
+                                               field, render_at, bg)
+    elif args.mode == "view":
+        R, T = RM.reference_rt(test_views[0])
+        result["frames"] = RM.interpolate_view(*common, test_views, state,
+                                               field, render_at, bg, R, T)
+    elif args.mode == "pose":
+        result["frames"] = RM.interpolate_poses(*common, test_views, state,
+                                                field, render_at, bg)
+    elif args.mode == "all":
+        result["frames"] = RM.interpolate_all(*common, test_views, state,
+                                              field, render_at, bg)
+    else:
+        result["frames"] = RM.interpolate_view_original(
+            *common, test_views, state, field, render_at, bg)
+    if args.mode != "render":
+        result["seconds"] = time.perf_counter() - t0
+
     if args.benchmark:
         result["benchmark"] = benchmark(render_at, state, field,
                                         test_views[0], bg)
+
+    if args.trajectories:
+        from .render_eval.trajectories import (export_trajectories,
+                                               plot_trajectories)
+        t0 = time.perf_counter()
+        traj, _ = export_trajectories(mp, state, field)
+        result["trajectories"] = {"shape": list(traj.shape),
+                                  "seconds": time.perf_counter() - t0}
+        plot_trajectories(os.path.join(mp, "trajectories.png"), traj)
     return result
 
 

@@ -123,13 +123,18 @@ def test_cli_renders_on_cpu(model_dir, jax_renders):
 
 
 def test_cli_device_policy(model_dir):
-    """The card by default, the CPU only on request, never a silent drop;
-    unported modes and blend paths raise."""
+    """The card by default, the CPU only on request, never a silent drop,
+    in every mode and in the evaluation CLIs; unported blend paths raise."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            trender.main(["-m", model_dir])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.main(["-m", model_dir, "--mode", "time", "--device", "cpu"])
+        from d3gs_tpu_torch import full_eval, metrics, sample_trajectories
+        for mode in ("render", "time", "view", "pose", "all", "original"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                trender.main(["-m", model_dir, "--mode", mode])
+        for argv, cli in ((["-m", model_dir], metrics),
+                          (["-m", model_dir], sample_trajectories),
+                          (["--dnerf_path", model_dir], full_eval)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                cli.main(argv)
     with pytest.raises(ValueError, match="binning"):
         trender.main(["-m", model_dir, "--device", "cpu", "--binning",
                       "pallas"])
@@ -140,7 +145,8 @@ def test_cli_device_policy(model_dir):
 
 def test_port_imports_no_jax():
     """Importing every d3gs_tpu_torch module loads no jax, flax or
-    d3gs_tpu module."""
+    d3gs_tpu module, and none of imageio, matplotlib or PIL, which the
+    card's machine lacks (the modules import them where they are used)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import d3gs_tpu_torch\n"
@@ -148,7 +154,8 @@ def test_port_imports_no_jax():
         "                               'd3gs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'd3gs_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'd3gs_tpu', 'imageio',\n"
+        "        'matplotlib', 'PIL')]\n"
         "print(len([k for k in sys.modules if k.startswith('d3gs_tpu_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
