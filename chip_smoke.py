@@ -71,6 +71,20 @@ Phases (any failure exits non-zero):
          weights held against the CPU's metrics on the same PNGs,
          `full_eval.main` on one scene (200 iterations), and the camera
          resize against `data/resize.py`;
+     4k. the side trainers and tools: (a) `train_baseline_sam.main` on a
+         copy of 4b's set at full width with SLIC label maps (64 masks),
+         260 iterations (211 deform steps) with the regularizer watched,
+         one step with the mask term card against CPU, and
+         `train_baseline` with a recording tb_writer and a live_hook;
+         (b) `forecast.main` at its defaults on 4j's trajectories for one
+         epoch, the training step and the rollout timed, a forward card
+         against CPU; (c) `ode_demo.main` (spiral, sine3d) at 20
+         iterations; (d) `train_gui --view_only --no_gui` on 4b's
+         checkpoint and its training route (50 iterations) in
+         subprocesses, frames taken by a loopback client, each ended by
+         SIGINT with exit code 0, and `GUI.test_step` against the plain
+         blend; (e) `train_loops.main` on 4d's set, sequence lengths 6 and
+         12;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, both blend
      kernels alone (CUDA events and profiler device time) on the bench
@@ -1872,6 +1886,501 @@ def eval_path(dev, data, mp, root) -> dict:
             "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# 4k: the SAM trainer, the forecaster, ode_demo, the viewer, train_loops
+# --------------------------------------------------------------------------
+
+SAM_ITERATIONS, SAM_WARM_UP = 260, 50   # 4k-a: 211 deform steps
+SAM_MASKS = 64
+# 4k-a: one deform step with the mask term, card against CPU: the loss
+# within 1e-4 relative, the gradients within 2e-3 of the largest (the
+# blend backward alone agrees to 2e-4; index_add sums in another order)
+SAM_LOSS_RTOL, SAM_GRAD_ERR = 1e-4, 2e-3
+FORECAST_CHECK_ERR = 1e-4        # 4k-b: card vs CPU forward, of the largest
+ODE_DEMO_ITERATIONS = 20         # 4k-c: each demo (the CLI's default is 400)
+GUI_TRAIN_ITERATIONS = 50        # 4k-d: train_gui's training route
+SWEEP_ITERATIONS = 4             # 4k-e: each train_loops run (2 warm-up)
+
+
+class Recorder:
+    """Records the SummaryWriter calls a trainer makes."""
+
+    def __init__(self):
+        self.events = []
+
+    def add_scalar(self, tag, value, step):
+        self.events.append(("scalar", tag, int(step), float(value)))
+
+    def add_histogram(self, tag, values, step):
+        self.events.append(("histogram", tag, int(step), np.shape(values)))
+
+    def add_image(self, tag, img, step, dataformats="CHW"):
+        self.events.append(("image", tag, int(step), np.shape(img)))
+
+
+def sam_step_card_vs_cpu(dev, data, mp, num_masks) -> dict:
+    """One deform step with the mask term from the SAM run's checkpoint
+    (Gaussians, deform weights) and its cached SLIC label map, on the card
+    and on the CPU: the loss and the deform gradients."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
+                                                     load_deform_weights)
+    from d3gs_tpu_torch.train import sam_reg as S
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    from d3gs_tpu_torch.train.step import make_loss_and_grads
+    cfg = C.ModelParams(**C.load_cfg_args(mp))
+    res = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        scene = Scene(cfg, load_iteration=-1, shuffle=False, device=where)
+        cam = scene.get_train_cameras()[0]
+        lab = np.load(os.path.join(data, "sam_masks_cache",
+                                   f"{cam.image_name}_mask.npy"))
+        labels = torch.as_tensor(np.clip(lab, 0, num_masks), dtype=torch.int32,
+                                 device=where)
+        field = load_deform_weights(mp, create_deform_field(
+            pick_field_spec(cfg, C.OptimizationParams()), device=where))
+
+        def extra(out, deform_out, camera, state, lab_):
+            dx, dr, ds = deform_out
+            return 0.5 * S.mask_regularization(
+                lab_, num_masks, state.params.xyz + dx, camera.projmatrix,
+                dx, dr, ds, state.alive, camera.width, camera.height)
+
+        step = make_loss_and_grads(
+            opt_cfg=C.OptimizationParams(), pipe_cfg=C.PipelineParams(),
+            deform_fn=lambda xyz, fid, it, g: field.step(xyz, fid),
+            deform_params=list(field.net.parameters()), extra_loss_fn=extra)
+        t0 = time.perf_counter()
+        r = step(scene.gaussians, cam, 5000, None,
+                 torch.zeros(3, device=where), labels)
+        reg = extra(None, field.step(scene.gaussians.params.xyz, cam.fid),
+                    cam, scene.gaussians, labels)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        res[name] = {"loss": float(r.loss), "reg": float(reg.detach()),
+                     "grads": [g.cpu() for g in r.deform],
+                     "s": time.perf_counter() - t0}
+    card, cpu = res["card"], res["cpu"]
+    scale = max(float(g.abs().max()) for g in cpu["grads"])
+    err = max(float((a - b).abs().max()) for a, b in zip(card["grads"],
+                                                         cpu["grads"])) / scale
+    out = {"loss_card": card["loss"], "loss_cpu": cpu["loss"],
+           "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "reg_card": card["reg"], "reg_cpu": cpu["reg"],
+           "grad_err_of_largest": err, "cpu_step_s": cpu["s"]}
+    log(f"[4k-a] one deform step with the mask term, card vs CPU on "
+        f"{cam.image_name}: {json.dumps(out)} (tol loss {SAM_LOSS_RTOL} "
+        f"relative, gradients {SAM_GRAD_ERR} of the largest)")
+    if not (out["loss_rel_err"] <= SAM_LOSS_RTOL and err <= SAM_GRAD_ERR
+            and card["reg"] > 0):
+        raise AssertionError(f"4k-a: card and CPU differ: {out}")
+    return out
+
+
+def hooks_check(dev, data) -> dict:
+    """`train_baseline` for a few iterations at full width with a recording
+    tb_writer and a live_hook: the JAX trainer's tags at its steps."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.baseline import train_baseline
+    model = C.ModelParams(source_path=data, eval=True, is_blender=True,
+                          sh_degree=3)
+    opt = C.OptimizationParams(iterations=6, warm_up=3)
+    scene = Scene(model, seed=0, device=dev)
+    writer, hooks = Recorder(), []
+    B.launches = B.launches_bwd = 0
+    train_baseline(
+        gaussians=scene.gaussians, train_cams=scene.get_train_cameras(),
+        test_cams=scene.get_test_cameras(),
+        cameras_extent=scene.cameras_extent, model_cfg=model, opt_cfg=opt,
+        pipe_cfg=C.PipelineParams(), test_iterations={4, 6}, seed=0,
+        log_every=2, tb_writer=writer, progress=False,
+        live_hook=lambda st, ds, field, it: hooks.append(
+            (it, st.num_alive, field.spec.kind)))
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    steps = {}
+    for kind, tag, step, _ in writer.events:
+        steps.setdefault(tag, []).append(step)
+    want = {"train_loss_patches/total_loss": [1, 2, 4, 6],
+            "train_loss_patches/l1_loss": [1, 2, 4, 6],
+            "total_points": [1, 2, 4, 6], "iter_time": [1, 2, 4, 6],
+            "test/psnr": [4, 6], "scene/opacity_histogram": [4, 6],
+            "test_view_0/render": [4, 6], "test_view_1/render": [4, 6],
+            "test_view_0/ground_truth": [4],
+            "test_view_1/ground_truth": [4]}
+    images = {e[3] for e in writer.events if e[0] == "image"}
+    log(f"[4k-a] train_baseline with a recording tb_writer and a live_hook, "
+        f"6 iterations: tags at steps {json.dumps(steps)}, image shapes "
+        f"{sorted(images)}, hook calls {hooks}; kernel launches {launches}")
+    if (steps != want or [h[0] for h in hooks] != [1, 2, 4, 6]
+            or images != {(HEIGHT, WIDTH, 3)}
+            or launches["blend_bwd"] < 6):
+        raise AssertionError(f"4k-a hooks: {steps}, {hooks}, {launches}")
+    return {"tags": len(steps), "hooks": len(hooks), "launches": launches}
+
+
+def sam_path(dev, data, root) -> dict:
+    """Phase 4k-a: `python -m d3gs_tpu_torch.train_baseline_sam` in process
+    on a copy of 4b's dataset and point cloud at full width (43,132
+    Gaussians, 400x400, SH 3, the 8x256 Blender MLP), --segmenter slic
+    with 64 masks, SAM_ITERATIONS iterations after a SAM_WARM_UP warm-up;
+    the regularizer watched at every deform step, the kernels' counts
+    read around the trainer; then one step card against CPU and the
+    trainers' hooks."""
+    import shutil
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train import sam_reg as S
+    from d3gs_tpu_torch.train_baseline_sam import main as sam_main
+    t_start = time.perf_counter()
+    data_s = os.path.join(root, "data_sam")
+    shutil.copytree(data, data_s)
+    mp = os.path.join(root, "sam")
+    regs, stamps = [], []
+    real = S.mask_regularization
+
+    def watch(*args, **kw):
+        value = real(*args, **kw)
+        regs.append(value.detach())
+        stamps.append(time.perf_counter())
+        return value
+
+    S.mask_regularization = watch
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    try:
+        result = sam_main([
+            "-s", data_s, "-m", mp, "--eval", "--is_blender", "--quiet",
+            "--sh_degree", "3", "--iterations", str(SAM_ITERATIONS),
+            "--warm_up", str(SAM_WARM_UP), "--segmenter", "slic",
+            "--num_masks", str(SAM_MASKS), "--test_iterations",
+            str(SAM_ITERATIONS), "--save_iterations", str(SAM_ITERATIONS)])
+        torch.cuda.synchronize()
+    finally:
+        S.mask_regularization = real
+    wall = time.perf_counter() - t0
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    deform_steps = SAM_ITERATIONS - SAM_WARM_UP + 1
+    regs = [float(r) for r in regs]
+    step_ms = 1e3 * (stamps[-1] - stamps[0]) / max(len(stamps) - 1, 1)
+    cache = sorted(os.listdir(os.path.join(data_s, "sam_masks_cache")))
+    out = {"seconds": wall, "deform_steps": len(regs),
+           "reg_first": regs[0] if regs else None,
+           "reg_last": regs[-1] if regs else None,
+           "test_psnr": result.test_psnrs.get(SAM_ITERATIONS),
+           "deform_step_ms_host_interval": step_ms, "launches": launches,
+           "label_cache": cache}
+    log(f"[4k-a] train_baseline_sam.main (slic, {SAM_MASKS} masks): "
+        f"{json.dumps(out)}; losses {result.losses}")
+    n_eval = 2
+    if (len(regs) != deform_steps or not all(math.isfinite(r) and r >= 0
+                                             for r in regs)
+            or not regs[0] > 0):
+        raise AssertionError(f"4k-a: regularizer {regs[:3]}...{regs[-3:]} "
+                             f"over {len(regs)} of {deform_steps} steps")
+    if (launches["blend_bwd"] < SAM_ITERATIONS
+            or launches["blend_fwd"] < SAM_ITERATIONS + n_eval):
+        raise AssertionError(f"4k-a: launches {launches}")
+    if not (out["test_psnr"] is not None and math.isfinite(out["test_psnr"])
+            and len(cache) == 4):
+        raise AssertionError(f"4k-a: PSNR {result.test_psnrs}, cache {cache}")
+    out["card_vs_cpu"] = sam_step_card_vs_cpu(dev, data_s, mp, SAM_MASKS)
+    out["hooks"] = hooks_check(dev, data)
+    out["phase_seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def forecast_path(dev, traj_path, root) -> dict:
+    """Phase 4k-b: `python -m d3gs_tpu_torch.forecast` at its defaults
+    (d_model 128, 4 heads, 4+4 layers, past 80, future 30, stride 10,
+    batch 1024, 5,000 Gaussians) on 4j's (150, N, 3) trajectories for one
+    epoch; the training step and the rollout timed by CUDA events; a
+    forward of the same weights on the card against the CPU."""
+    from d3gs_tpu_torch.forecast import __main__ as FM
+    from d3gs_tpu_torch.forecast import train as FT
+    from d3gs_tpu_torch.forecast.model import (TrajectoryForecaster,
+                                               normalize_window)
+    from d3gs_tpu_torch.ops import blend as B
+    t_start = time.perf_counter()
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    metrics = FM.main(["--trajectories", traj_path, "--output_dir",
+                       os.path.join(root, "forecast"), "--epochs", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traj = np.load(traj_path)
+    if traj.shape[1] > 5000:        # the CLI's subsample
+        traj = traj[:, np.random.default_rng(0).choice(
+            traj.shape[1], 5000, replace=False)]
+    past, future = FT.make_windows(traj, 80, 30, 10)
+    model = TrajectoryForecaster(seed=1).to(dev)
+    state = FT.init_state(model)
+    step = FT.make_train_step(model)
+    pb = torch.as_tensor(past[:1024], device=dev)
+    fb = torch.as_tensor(future[:1024], device=dev)
+
+    def one():
+        nonlocal state
+        state, _ = step(state, pb, fb)
+    step_ms = cuda_ms(one, reps=10)
+    step_prof = profile(one, calls=3, top=6)
+    n_val = max(int(len(past) * 0.1), 1)
+    pv = torch.as_tensor(past[:n_val], device=dev)
+    rollout_ms = cuda_ms(lambda: FT.forecast(model, pv, 30), reps=1,
+                         warmup=1)
+    with torch.no_grad():
+        pn, mu, sd = normalize_window(pb[:64])
+        fut_in = torch.cat([pn[:, -1:], ((fb[:64] - mu) / sd)[:, :-1]],
+                           dim=1)
+        card = model(pn, fut_in).cpu()
+        cpu_model = TrajectoryForecaster(seed=1)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        ref = cpu_model(pn.cpu(), fut_in.cpu())
+    err = float((card - ref).abs().max() / ref.abs().max())
+    out = {"metrics": metrics, "cli_seconds": wall,
+           "windows": int(len(past)), "train_step_ms": step_ms,
+           "train_step_profile": step_prof,
+           "rollout_ms": rollout_ms, "rollout_windows": n_val,
+           "card_vs_cpu_of_largest": err,
+           "blend_launches": B.launches + B.launches_bwd,
+           "phase_seconds": time.perf_counter() - t_start}
+    log(f"[4k-b] forecast.main at its defaults, 1 epoch: {json.dumps(out)} "
+        f"(card vs CPU forward on 64 windows, tol {FORECAST_CHECK_ERR} of "
+        f"the largest)")
+    if not (all(math.isfinite(v) for v in metrics.values())
+            and err <= FORECAST_CHECK_ERR):
+        raise AssertionError(f"4k-b: {out}")
+    return out
+
+
+def ode_demo_path(root) -> dict:
+    """Phase 4k-c: `python -m d3gs_tpu_torch.ode_demo` with both demos at
+    ODE_DEMO_ITERATIONS iterations (the rest at the CLI's defaults)."""
+    from d3gs_tpu_torch import ode_demo
+    out = {}
+    for demo in ("spiral", "sine3d"):
+        t0 = time.perf_counter()
+        mse = ode_demo.main(["--demo", demo, "--iterations",
+                             str(ODE_DEMO_ITERATIONS), "--out",
+                             os.path.join(root, "ode_demo")])
+        torch.cuda.synchronize()
+        out[demo] = {"rollout_mse": mse,
+                     "seconds": time.perf_counter() - t0}
+    log(f"[4k-c] ode_demo.main, {ODE_DEMO_ITERATIONS} iterations: "
+        f"{json.dumps(out)}")
+    if not all(math.isfinite(v["rollout_mse"]) for v in out.values()):
+        raise AssertionError(f"4k-c: {out}")
+    return out
+
+
+def viewer_message(width, height, V, full):
+    """A SIBR client message for the row-vector view / full projection
+    (sent with the columns the viewer negates on receipt negated)."""
+    v, f = np.array(V, np.float64), np.array(full, np.float64)
+    v[:, 1:3] *= -1
+    f[:, 1] *= -1
+    fov = math.radians(60)
+    return {"resolution_x": width, "resolution_y": height, "train": True,
+            "fov_x": fov, "fov_y": fov, "z_near": 0.01, "z_far": 100.0,
+            "shs_python": False, "rot_scale_python": False,
+            "keep_alive": True, "scaling_modifier": 1.0,
+            "view_matrix": v.ravel().tolist(),
+            "view_projection_matrix": f.ravel().tolist()}
+
+
+def request_frame(sock, msg):
+    """One message on a connected client socket -> (H, W, 3) uint8 frame."""
+    data = json.dumps(msg).encode()
+    sock.sendall(len(data).to_bytes(4, "little") + data)
+    n = msg["resolution_x"] * msg["resolution_y"] * 3 + 4
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise AssertionError("4k-d: the viewer closed the connection")
+        buf += chunk
+    k = int.from_bytes(buf[-4:], "little")
+    verify = b""
+    while len(verify) < k:
+        verify += sock.recv(k - len(verify))
+    return np.frombuffer(buf[:-4], np.uint8).reshape(
+        msg["resolution_y"], msg["resolution_x"], 3)
+
+
+def serve_frames(args, frames: int, training: bool) -> dict:
+    """`python -m d3gs_tpu_torch.train_gui --no_gui --port 0 <args>` in a
+    subprocess; a loopback client takes `frames` frames of the bench
+    camera, each marked with whether the process had printed "training
+    done" by then; SIGINT (after training, where it trains: the CLI serves
+    until interrupted only then) ends it, which must exit 0."""
+    import select
+    import signal
+    import socket
+    import threading
+    from d3gs_tpu_torch.ops.camera_math import perspective_projection, \
+        world_to_view
+    fov = math.radians(60)
+    V = world_to_view(np.eye(3), np.array([0.0, 0.0, 4.0])).T
+    full = V @ perspective_projection(0.01, 100.0, fov, fov).T
+    msg = viewer_message(WIDTH, HEIGHT, V, full)
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "d3gs_tpu_torch.train_gui", *args,
+         "--no_gui", "--port", "0"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, got, port = [], [], None
+    t0 = time.perf_counter()
+    try:
+        while port is None and time.perf_counter() - t0 < 300:
+            if proc.poll() is not None:
+                break
+            if select.select([proc.stdout], [], [], 1.0)[0]:
+                line = proc.stdout.readline()
+                lines.append(line)
+                if "127.0.0.1:" in line:
+                    port = int(line.rsplit(":", 1)[1])
+        if port is None:
+            raise AssertionError("4k-d: train_gui did not listen: "
+                                 + "".join(lines)[-2000:])
+        startup = time.perf_counter() - t0
+        done = threading.Event()
+
+        def reader():
+            for line in proc.stdout:
+                lines.append(line)
+                if "training done" in line:
+                    done.set()
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+            for _ in range(frames):
+                img = request_frame(s, msg)
+                got.append((img, done.is_set(), time.perf_counter() - t0))
+        if training and not done.wait(timeout=600):
+            raise AssertionError("4k-d: training did not end: "
+                                 + "".join(lines)[-2000:])
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        th.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"frames": got, "rc": rc, "startup_s": startup,
+            "output": "".join(lines)}
+
+
+def viewer_path(dev, data, mp, root) -> dict:
+    """Phase 4k-d: `train_gui --view_only --no_gui` on 4b's checkpoint in a
+    subprocess (three loopback frames, SIGINT); in process, `GUI.test_step`
+    on the same checkpoint at a fixed fid against the plain blend of its
+    camera; `train_gui --no_gui`'s training route (GUI_TRAIN_ITERATIONS
+    iterations on 4b's dataset at full width) while a client takes frames
+    through its live_hook."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
+                                                     load_deform_weights)
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    from d3gs_tpu_torch.viewer.gui import GUI
+    t_start = time.perf_counter()
+    common = ["-s", data, "--is_blender", "--sh_degree", "3"]
+    view = serve_frames(["-m", mp, "--view_only", *common], 3, False)
+    cover = [float((img.max(axis=-1) > 0).mean())
+             for img, _, _ in view["frames"]]
+    log(f"[4k-d] train_gui --view_only --no_gui on 4b's checkpoint: 3 "
+        f"frames of {WIDTH}x{HEIGHT}, coverage {cover}, at "
+        f"{[round(t, 2) for _, _, t in view['frames']]} s (listening after "
+        f"{view['startup_s']:.1f} s); exit code after SIGINT {view['rc']}")
+    if view["rc"] != 0 or min(cover) <= 0.05:
+        raise AssertionError(f"4k-d view_only: rc {view['rc']}, coverage "
+                             f"{cover}: {view['output'][-3000:]}")
+
+    cfg = C.ModelParams(**C.load_cfg_args(mp))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
+    fld = load_deform_weights(mp, create_deform_field(
+        pick_field_spec(cfg, C.OptimizationParams()), device=dev))
+    gui = GUI(scene.gaussians, width=WIDTH, height=HEIGHT, radius=4.0,
+              deform_fn=lambda xyz, fid: fld.step(xyz, fid))
+    gui.cam.orbit(150.0, 40.0)
+    gui.playing, gui.fid = False, 0.5
+    B.launches = 0
+    frame = gui.test_step()
+    torch.cuda.synchronize()
+    gui_launches = B.launches
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        cam = gui._camera()
+        rec, bins, grid = stages(scene.gaussians, cam, fld, bg)
+        plain = B.blend_forward_torch(rec, bins, bg, **grid).image.clamp(
+            0, 1).cpu().numpy()
+    err = np.abs(frame - plain)
+    gui_err = float(err.max())
+    log(f"[4k-d] GUI.test_step at fid 0.5 on 4b's checkpoint: max "
+        f"|frame - plain blend| {gui_err:.3e} (tol {ATOL} + {RTOL}|ref|), "
+        f"coverage {float((frame.max(-1) > 0).mean()):.3f}, "
+        f"{gui.infer_ms:.2f} ms, blend_fwd launches {gui_launches}")
+    if gui_launches < 1 or (err > ATOL + RTOL * np.abs(plain)).any():
+        raise AssertionError(f"4k-d GUI.test_step: launches {gui_launches}, "
+                             f"max err {gui_err}")
+
+    train = serve_frames(["-m", os.path.join(root, "gui"), *common,
+                          "--iterations", str(GUI_TRAIN_ITERATIONS),
+                          "--warm_up", "20"], 6, True)
+    during = sum(1 for _, d, _ in train["frames"] if not d)
+    log(f"[4k-d] train_gui --no_gui, {GUI_TRAIN_ITERATIONS} iterations: "
+        f"{len(train['frames'])} frames, {during} of them through the "
+        f"live_hook during training, at "
+        f"{[round(t, 2) for _, _, t in train['frames']]} s; exit code after "
+        f"SIGINT {train['rc']}")
+    if (train["rc"] != 0 or during < 1
+            or "training done" not in train["output"]
+            or any(img.shape != (HEIGHT, WIDTH, 3)
+                   for img, _, _ in train["frames"])):
+        raise AssertionError(f"4k-d training route: rc {train['rc']}, "
+                             f"{during} frames during training: "
+                             f"{train['output'][-3000:]}")
+    return {"view_only_coverage": cover, "gui_err": gui_err,
+            "gui_launches": gui_launches, "train_frames": len(
+                train["frames"]), "train_frames_during": during,
+            "phase_seconds": time.perf_counter() - t_start}
+
+
+def sweep_path(dev, data_f, root) -> dict:
+    """Phase 4k-e: `python -m d3gs_tpu_torch.train_loops` on 4d's 12-view
+    set with --sequence_lengths 6 12, SWEEP_ITERATIONS iterations each
+    (the flagship trainer's MLP kind, its default k), the blend kernels'
+    counts read around it."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch import train_loops
+    from d3gs_tpu_torch.ops import blend as B
+    t0 = time.perf_counter()
+    B.launches = B.launches_bwd = 0
+    res = train_loops.main([
+        "-s", data_f, "-m", os.path.join(root, "sweep"), "--eval",
+        "--is_blender", "--quiet", "--sh_degree", "3", "--iterations",
+        str(SWEEP_ITERATIONS), "--warm_up", "2", "--sequence_lengths", "6",
+        "12"])
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    k = C.OptimizationParams().num_cams_per_iter
+    out = {"best_psnr": res, "launches": launches, "k": k,
+           "seconds": time.perf_counter() - t0}
+    log(f"[4k-e] train_loops.main --sequence_lengths 6 12: "
+        f"{json.dumps(out)}")
+    steps = 2 * SWEEP_ITERATIONS
+    if (sorted(res) != [6, 12] or not all(math.isfinite(v)
+                                          for v in res.values())
+            or launches["blend_bwd"] < steps
+            or launches["blend_fwd"] < steps + 2 * FLAGSHIP_VIEWS[1]):
+        raise AssertionError(f"4k-e: {out}")
+    return out
+
+
 def blend_kernel_times(records, bins, bg, grid) -> dict:
     """Phase 5: both blend kernels alone on one scene, launched into
     preallocated outputs (so the wrappers' host work, checks and
@@ -2408,12 +2917,32 @@ def main() -> int:
         # ---- 4j. evaluation on 4b's checkpoint --------------------------
         eval_ = eval_path(dev, data, os.path.join(tmp, "trained"),
                           os.path.join(tmp, "eval"))
+        # ---- 4k. the SAM trainer, forecaster, ode_demo, viewer, sweep ----
+        t4k = time.perf_counter()
+        side = {"sam": sam_path(dev, data, tmp)}
+        side["forecast"] = forecast_path(dev, os.path.join(
+            tmp, "trained", "trajectories.npy"), tmp)
+        side["ode_demo"] = ode_demo_path(tmp)
+        side["viewer"] = viewer_path(dev, data, os.path.join(tmp, "trained"),
+                                     tmp)
+        side["sweep"] = sweep_path(dev, data_f, tmp)
+        seconds_4k = {"sam": side["sam"]["phase_seconds"],
+                      "forecast": side["forecast"]["phase_seconds"],
+                      "ode_demo": sum(v["seconds"] for v in
+                                      side["ode_demo"].values()),
+                      "viewer": side["viewer"]["phase_seconds"],
+                      "sweep": side["sweep"]["seconds"]}
+        log(f"[4k] took {time.perf_counter() - t4k:.1f} s: "
+            f"{json.dumps(seconds_4k)}")
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
         f"{launches}, adaptive flagship {adaptive['launches']}, "
         f"simple_start {simple_start['launches']}, distill "
         f"{distill['launches']}, bf16 {bf16['launches']}, eval "
-        f"{json.dumps(eval_['launches'])}")
+        f"{json.dumps(eval_['launches'])}, sam {side['sam']['launches']}, "
+        f"sam hooks {side['sam']['hooks']['launches']}, gui test_step "
+        f"{side['viewer']['gui_launches']}, sweep "
+        f"{side['sweep']['launches']}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,

@@ -9,6 +9,10 @@ PNG is the one format the port decodes. The JAX package reads any format
 Pillow reads; here a JPEG (COLMAP sets such as MipNeRF-360, Tanks&Temples
 and Deep Blending usually are) raises a ValueError that names the format
 and says to convert the set to PNG, and so does any other format.
+
+`read_label_png` reads segmentation label maps, which are usually paletted
+or 16-bit: it returns what `np.asarray(PIL.Image.open(p))[..., 0]` gives
+(the SAM-variant trainer's `load_label_maps`).
 """
 from __future__ import annotations
 
@@ -61,8 +65,8 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """-> uint8 array (H, W) for gray, (H, W, 3|4) for RGB/RGBA."""
+def _read_chunks(path: str):
+    """-> (IHDR fields, the joined IDAT bytes) of a PNG file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:3] == _JPEG_SIGNATURE:
@@ -85,15 +89,55 @@ def read_png(path: str) -> np.ndarray:
             break
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
+    return header, b"".join(idat)
+
+
+def read_png(path: str) -> np.ndarray:
+    """-> uint8 array (H, W) for gray, (H, W, 3|4) for RGB/RGBA."""
+    header, idat = _read_chunks(path)
     width, height, depth, color, _, _, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace != 0:
         raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color "
                          f"type {color}, interlace {interlace}); 8-bit "
                          "non-interlaced gray/RGB/RGBA only")
     ch = _CHANNELS[color]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width * ch, ch)
+    pixels = _unfilter(zlib.decompress(idat), height, width * ch, ch)
     return pixels.reshape(height, width, ch) if ch > 1 else \
         pixels.reshape(height, width)
+
+
+def read_label_png(path: str) -> np.ndarray:
+    """A label map -> (H, W) array, what `np.asarray(PIL.Image.open(path))`
+    followed by `[..., 0]` gives: palette indices for a paletted PNG (bit
+    depth 1, 2, 4 or 8; not the palette's colours), the values of 8- and
+    16-bit gray, channel 0 of 8-bit RGB and RGBA. Any other format
+    (interlaced, gray with alpha, 16-bit colour, 1/2/4-bit gray) raises a
+    ValueError that names it."""
+    header, idat = _read_chunks(path)
+    width, height, depth, color, _, _, interlace = header
+    ok = interlace == 0 and ((color == 3 and depth in (1, 2, 4, 8))
+                             or (color == 0 and depth in (8, 16))
+                             or (color in (2, 6) and depth == 8))
+    if not ok:
+        raise ValueError(
+            f"{path}: unsupported label PNG (bit depth {depth}, color type "
+            f"{color}, interlace {interlace}); non-interlaced paletted "
+            "(1/2/4/8-bit), 8/16-bit gray, 8-bit RGB or RGBA only")
+    ch = 1 if color in (0, 3) else _CHANNELS[color]
+    bits = width * ch * depth
+    stride = (bits + 7) // 8
+    rows = _unfilter(zlib.decompress(idat), height, stride,
+                     max(1, ch * depth // 8))
+    if depth == 16:
+        return (rows.reshape(height, width, 2).astype(np.uint16)
+                @ np.array([256, 1], np.uint16))
+    if depth < 8:            # palette indices packed MSB first
+        per = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        idx = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        return idx.reshape(height, stride * per)[:, :width]
+    pixels = rows.reshape(height, width, ch)
+    return pixels[..., 0]
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

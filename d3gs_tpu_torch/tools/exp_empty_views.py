@@ -137,8 +137,9 @@ class EmptyViewWatch:
             inner = self.orig(**kw)
             deform_fn = kw.get("deform_fn")
 
-            def loss_and_grads(state, camera, iteration, generator, bg):
-                r = inner(state, camera, iteration, generator, bg)
+            def loss_and_grads(state, camera, iteration, generator, bg,
+                               aux_data=None):
+                r = inner(state, camera, iteration, generator, bg, aux_data)
                 empty = bool(r.out.image.max() <= 0)
                 self.steps.append((iteration, round(float(camera.fid), 3),
                                    float(r.loss), empty))

@@ -62,13 +62,14 @@ def main(argv=None):
                                            "optimization": opt_cfg})
     if pipe_cfg.mesh_shape:
         raise NotImplementedError("--mesh_shape is not ported yet (ROADMAP.md,"
-                                  " Queue 1: slice 7, multi-GPU)")
+                                  " Queue 1: slice 8, multi-GPU)")
 
     if not model_cfg.model_path:
         model_cfg.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
     os.makedirs(model_cfg.model_path, exist_ok=True)
     C.save_cfg_args(model_cfg.model_path, model_cfg)
     print(f"Output folder: {model_cfg.model_path}")
+    tb_writer = make_tb_writer(model_cfg.model_path)
 
     from ..data.scene import Scene, load_gaussians_ply, \
         search_for_max_iteration
@@ -95,16 +96,29 @@ def main(argv=None):
         test_iterations=set(args.test_iterations),
         save_iterations=set(args.save_iterations + [opt_cfg.iterations]),
         model_path=model_cfg.model_path, seed=args.seed,
-        progress=not args.quiet)
+        tb_writer=tb_writer, progress=not args.quiet)
     if args.trainer == "baseline":
         from .baseline import train_baseline
         result = train_baseline(**common)
     else:
         from .flagship import train_flagship
         result = train_flagship(base_model_frozen=frozen, **common)
+    if tb_writer is not None:
+        tb_writer.close()
     print(f"Best PSNR = {result.best_psnr:.2f} "
           f"in Iteration {result.best_iteration}")
     return result
+
+
+def make_tb_writer(model_path: str):
+    """A tensorboard SummaryWriter on `model_path`, or None (printed) where
+    torch.utils.tensorboard does not import (train.py:65-70)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("Tensorboard not available; not logging progress")
+        return None
+    return SummaryWriter(model_path)
 
 
 if __name__ == "__main__":

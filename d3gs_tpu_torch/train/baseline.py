@@ -70,15 +70,22 @@ def train_baseline(
     log_every: int = 50,
     tb_writer=None,
     progress: bool = True,
+    extra_loss_fn=None,
+    aux_data_fn=None,
     live_hook=None,
 ) -> TrainResult:
     """Train `gaussians` and a fresh deform field (torch.Generator(seed)
-    for its weights, the AST noise and the split noise). `tb_writer` and
-    `live_hook` are not ported and raise if set."""
-    if tb_writer is not None or live_hook is not None:
-        raise NotImplementedError(
-            "tb_writer / live_hook (tensorboard, viewer) are not ported "
-            "(ROADMAP.md, Queue 1: side trainers and tools)")
+    for its weights, the AST noise and the split noise).
+
+    `extra_loss_fn` / `aux_data_fn(camera)` add a per-camera
+    differentiable regularizer to the deform-phase loss (the SAM-variant
+    trainer's mask consistency, `train_baseline_sam`). `tb_writer` (a
+    SummaryWriter or anything with its add_scalar / add_histogram /
+    add_image) gets the losses, point count and iter_time at each log
+    point and the test PSNR, opacity histogram and first five eval renders
+    at each test iteration. `live_hook(state, deform_state, field,
+    iteration)` fires at each log point with the live training state (the
+    viewer renders from it)."""
     rng = Random(seed)
     dev = gaussians.alive.device
     gen = torch.Generator().manual_seed(seed)
@@ -109,7 +116,7 @@ def train_baseline(
     deform_step = make_train_step(
         opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, is_6dof=model_cfg.is_6dof,
         deform_fn=deform_fn, deform_params=list(field.net.parameters()),
-        deform_update_fn=field.update)
+        deform_update_fn=field.update, extra_loss_fn=extra_loss_fn)
     eval_render = make_eval_render(pipe_cfg=pipe_cfg,
                                    is_6dof=model_cfg.is_6dof,
                                    deform_fn=deform_fn)
@@ -118,6 +125,7 @@ def train_baseline(
     viewpoint_stack: list[Camera] = []
     ema_loss = 0.0
     t0 = time.perf_counter()
+    timer = IterTimer()
 
     for iteration in range(1, opt_cfg.iterations + 1):
         if iteration % 1000 == 0:
@@ -128,24 +136,34 @@ def train_baseline(
         if iteration < opt_cfg.warm_up:
             state, _, aux = warm_step(state, None, cam, iteration, gen, bg)
         else:
+            aux_data = aux_data_fn(cam) if aux_data_fn is not None else None
             state, deform_state, aux = deform_step(state, deform_state, cam,
-                                                   iteration, gen, bg)
+                                                   iteration, gen, bg,
+                                                   aux_data)
 
         if iteration % log_every == 0 or iteration == 1:
             loss_val = float(aux.loss)
             ema_loss = 0.4 * loss_val + 0.6 * ema_loss
             result.losses.append((iteration, loss_val))
+            if tb_writer is not None:
+                log_scalars(tb_writer, iteration, loss_val, state,
+                            timer(iteration), l1=float(aux.l1))
             if progress:
                 print(f"[train {iteration}/{opt_cfg.iterations}] loss "
                       f"{ema_loss:.4f} points {state.num_alive} "
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if live_hook is not None:
+                live_hook(state, deform_state, field, iteration)
 
         if iteration in test_iterations:
-            psnrs = [float(psnr(eval_render(
-                state, iteration >= opt_cfg.warm_up, tc, bg).image.clamp(0, 1),
-                tc.image)) for tc in (test_cams or train_cams[:5])]
-            mean_psnr = float(np.mean(psnrs))
+            mean_psnr, eval_imgs = evaluate(
+                eval_render, state, iteration >= opt_cfg.warm_up,
+                test_cams or train_cams[:5], bg)
             result.test_psnrs[iteration] = mean_psnr
+            if tb_writer is not None:
+                log_evaluation(tb_writer, iteration, mean_psnr, state,
+                               eval_imgs, first=iteration == min(
+                                   test_iterations))
             if progress:
                 print(f"[ITER {iteration}] evaluating test: PSNR "
                       f"{mean_psnr:.4f}", flush=True)
@@ -168,6 +186,66 @@ def train_baseline(
     result.state = state
     result.deform_state = deform_state
     return result
+
+
+class IterTimer:
+    """Milliseconds per iteration since the last call (the reference's
+    iter_time scalar, train.py:360), amortized over the iterations
+    between log points."""
+
+    def __init__(self):
+        self.t0, self.last = time.perf_counter(), 0
+
+    def __call__(self, iteration: int) -> float:
+        now = time.perf_counter()
+        ms = (now - self.t0) / max(iteration - self.last, 1) * 1e3
+        self.t0, self.last = now, iteration
+        return ms
+
+
+def log_scalars(tb_writer, iteration: int, loss: float,
+                state: G.GaussianState, iter_ms: float,
+                l1: float | None = None) -> None:
+    """The log point's scalars under the JAX trainers' tags (the flagship
+    trainer logs no l1)."""
+    tb_writer.add_scalar("train_loss_patches/total_loss", loss, iteration)
+    if l1 is not None:
+        tb_writer.add_scalar("train_loss_patches/l1_loss", l1, iteration)
+    tb_writer.add_scalar("total_points", state.num_alive, iteration)
+    tb_writer.add_scalar("iter_time", iter_ms, iteration)
+
+
+def evaluate(eval_render, state: G.GaussianState, use_deform: bool,
+             cams: list[Camera], bg) -> tuple[float, list]:
+    """-> (mean PSNR over `cams`, [(camera, render)] of the first five)."""
+    psnrs, eval_imgs = [], []
+    for tc in cams:
+        image = eval_render(state, use_deform, tc, bg).image
+        psnrs.append(float(psnr(image.clamp(0, 1), tc.image)))
+        if len(eval_imgs) < 5:
+            eval_imgs.append((tc, image))
+    return float(np.mean(psnrs)), eval_imgs
+
+
+def log_evaluation(tb_writer, iteration: int, mean_psnr: float,
+                   state: G.GaussianState, eval_imgs: list,
+                   first: bool) -> None:
+    """A test iteration's tensorboard record (reference training_report,
+    train.py:400-419): the PSNR, the live opacities' histogram and the
+    eval renders, with their ground truth at the first test iteration."""
+    tb_writer.add_scalar("test/psnr", mean_psnr, iteration)
+    if state.num_alive:   # a histogram of an empty array raises
+        tb_writer.add_histogram(
+            "scene/opacity_histogram",
+            state.get_opacity[state.alive].cpu().numpy(), iteration)
+    for vi, (tc, image) in enumerate(eval_imgs):
+        tb_writer.add_image(f"test_view_{vi}/render",
+                            image.clamp(0, 1).cpu().numpy(), iteration,
+                            dataformats="HWC")
+        if first:
+            tb_writer.add_image(f"test_view_{vi}/ground_truth",
+                                tc.image.cpu().numpy(), iteration,
+                                dataformats="HWC")
 
 
 def save_checkpoint(model_path: str, iteration: int, state: G.GaussianState,

@@ -19,7 +19,7 @@ per-camera (1−λ)·L1 + λ·(1−SSIM):
     (`IterativeSchedule`), Gaussian freezing from `base_model_path`, and the
     baseline trainer's densify cadence (skipped when the base is frozen).
 
-Not ported: the JAX trainer's `mesh` (multi-GPU, ROADMAP.md slice 7) raises;
+Not ported: the JAX trainer's `mesh` (multi-GPU, ROADMAP.md slice 8) raises;
 `steps_per_dispatch` (several jitted steps per dispatch) has no counterpart
 in an eager loop, and `max_batch_gaussians` is accepted and ignored, as in
 JAX.
@@ -32,7 +32,6 @@ from dataclasses import dataclass
 from random import Random
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..data.cameras import Camera
@@ -40,8 +39,9 @@ from ..models import gaussians as G
 from ..models.deform.fields import (MLP_KINDS, ODE_KINDS, DeformFieldSpec,
                                     create_deform_field)
 from ..models.renderer import render
-from ..ops.losses import l1_loss, psnr, ssim
-from .baseline import (TrainResult, densify_cadence, save_checkpoint,
+from ..ops.losses import l1_loss, ssim
+from .baseline import (IterTimer, TrainResult, densify_cadence, evaluate,
+                       log_evaluation, log_scalars, save_checkpoint,
                        subsample_stack)
 from .step import StepAux, make_eval_render
 
@@ -247,15 +247,12 @@ def train_flagship(
 ) -> TrainResult:
     """Train `gaussians` and the deform field of `pick_field_spec` (fresh
     from torch.Generator(seed) unless `field` and `deform_state` are
-    given). `mesh` and `tb_writer` are not ported and raise if set."""
+    given). `tb_writer` gets the JAX flagship trainer's tags (the
+    baseline's without l1); `mesh` is not ported and raises if set."""
     if mesh is not None:
         raise NotImplementedError(
             "the flagship trainer's mesh (multi-GPU) is not ported yet "
-            "(ROADMAP.md, Queue 1: slice 7, multi-GPU)")
-    if tb_writer is not None:
-        raise NotImplementedError(
-            "tb_writer (tensorboard) is not ported (ROADMAP.md, Queue 1: "
-            "side trainers and tools)")
+            "(ROADMAP.md, Queue 1: slice 8, multi-GPU)")
     dev = gaussians.alive.device
     gen = torch.Generator().manual_seed(seed)
     if field is None:
@@ -295,6 +292,7 @@ def train_flagship(
     result = TrainResult(state=state, field=field, deform_state=deform_state)
     ema_loss = 0.0
     t0 = time.perf_counter()
+    timer = IterTimer()
     for iteration in range(1, opt_cfg.iterations + 1):
         if iteration % 1000 == 0:
             state = G.oneup_sh_degree(state)
@@ -314,17 +312,23 @@ def train_flagship(
             loss_val = float(aux.loss)
             ema_loss = 0.4 * loss_val + 0.6 * ema_loss
             result.losses.append((iteration, loss_val))
+            if tb_writer is not None:
+                log_scalars(tb_writer, iteration, loss_val, state,
+                            timer(iteration))
             if progress:
                 print(f"[flagship {iteration}/{opt_cfg.iterations}] loss "
                       f"{ema_loss:.4f} points {state.num_alive} "
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         if iteration in test_iterations:
-            psnrs = [float(psnr(eval_render(
-                state, iteration >= opt_cfg.warm_up, tc, bg).image.clamp(0, 1),
-                tc.image)) for tc in (test_cams or train_cams[:5])]
-            mean_psnr = float(np.mean(psnrs))
+            mean_psnr, eval_imgs = evaluate(
+                eval_render, state, iteration >= opt_cfg.warm_up,
+                test_cams or train_cams[:5], bg)
             result.test_psnrs[iteration] = mean_psnr
+            if tb_writer is not None:
+                log_evaluation(tb_writer, iteration, mean_psnr, state,
+                               eval_imgs, first=iteration == min(
+                                   test_iterations))
             if progress:
                 print(f"[ITER {iteration}] evaluating test: PSNR "
                       f"{mean_psnr:.4f}", flush=True)

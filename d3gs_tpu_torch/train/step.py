@@ -12,7 +12,11 @@ without a deformation (reference train.py:144,224-236).
 The deformation enters through
     deform_fn(xyz, fid, iteration, generator) -> (dx, dr, ds)
 differentiable in `deform_params`; xyz is detached, as the JAX step feeds
-the MLP stop_gradient(xyz).
+the MLP stop_gradient(xyz). A regularizer enters through
+    extra_loss_fn(out, (dx, dr, ds), camera, state, aux_data) -> scalar
+added to the photometric loss before the backward (the SAM-variant
+trainer's mask consistency); `state` carries the live parameters the
+gradients are taken with, `aux_data` is its per-camera side input.
 """
 from __future__ import annotations
 
@@ -46,17 +50,20 @@ class StepGrads(NamedTuple):
 
 def make_loss_and_grads(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
                         deform_fn: Optional[Callable] = None,
-                        deform_params: Sequence[torch.Tensor] = ()):
-    """-> loss_and_grads(state, camera, iteration, generator, bg) ->
-    StepGrads: the forward and the one backward of a train step."""
+                        deform_params: Sequence[torch.Tensor] = (),
+                        extra_loss_fn: Optional[Callable] = None):
+    """-> loss_and_grads(state, camera, iteration, generator, bg,
+    aux_data=None) -> StepGrads: the forward and the one backward of a
+    train step."""
     lam = opt_cfg.lambda_dssim
     depth_grad = pipe_cfg.depth_grad
     deform_params = list(deform_params)
 
     def loss_and_grads(state: G.GaussianState, camera: Camera, iteration,
-                       generator, bg) -> StepGrads:
+                       generator, bg, aux_data=None) -> StepGrads:
         params = G.GaussianParams(*(p.detach().requires_grad_()
                                     for p in state.params))
+        st = dataclasses.replace(state, params=params)
         tap = torch.zeros((state.capacity, 2), device=bg.device,
                           requires_grad=True)
         if deform_fn is not None:
@@ -64,12 +71,15 @@ def make_loss_and_grads(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
                                    iteration, generator)
         else:
             dx, dr, ds = 0.0, 0.0, 0.0
-        out = render(dataclasses.replace(state, params=params), camera,
+        out = render(st, camera,
                      d_xyz=dx, d_rotation=dr, d_scaling=ds, is_6dof=is_6dof,
                      bg=bg, means2d_tap=tap, dup_capacity=pipe_cfg.dup_capacity,
                      antialias=pipe_cfg.antialias, depth_grad=depth_grad)
         ll1 = l1_loss(out.image, camera.image)
         loss = (1.0 - lam) * ll1 + lam * (1.0 - ssim(out.image, camera.image))
+        if extra_loss_fn is not None:
+            loss = loss + extra_loss_fn(out, (dx, dr, ds), camera, st,
+                                        aux_data)
         inputs = [*params, *deform_params, tap]
         grads = torch.autograd.grad(loss, inputs, allow_unused=True,
                                     materialize_grads=True)
@@ -84,18 +94,21 @@ def make_loss_and_grads(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
 def make_train_step(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
                     deform_fn: Optional[Callable] = None,
                     deform_params: Sequence[torch.Tensor] = (),
-                    deform_update_fn: Optional[Callable] = None):
-    """-> step(state, deform_state, camera, iteration, generator, bg) ->
-    (state, deform_state, StepAux). Pass deform_fn=None for the warm-up
-    phase; deform_update_fn(deform_state, grads, iteration) steps the
-    deform parameters and returns the new deform_state."""
+                    deform_update_fn: Optional[Callable] = None,
+                    extra_loss_fn: Optional[Callable] = None):
+    """-> step(state, deform_state, camera, iteration, generator, bg,
+    aux_data=None) -> (state, deform_state, StepAux). Pass deform_fn=None
+    for the warm-up phase; deform_update_fn(deform_state, grads, iteration)
+    steps the deform parameters and returns the new deform_state;
+    `extra_loss_fn` and `aux_data` as in `make_loss_and_grads`."""
     loss_and_grads = make_loss_and_grads(
         opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, is_6dof=is_6dof,
-        deform_fn=deform_fn, deform_params=deform_params)
+        deform_fn=deform_fn, deform_params=deform_params,
+        extra_loss_fn=extra_loss_fn)
 
     def step(state: G.GaussianState, deform_state, camera: Camera, iteration,
-             generator, bg):
-        r = loss_and_grads(state, camera, iteration, generator, bg)
+             generator, bg, aux_data=None):
+        r = loss_and_grads(state, camera, iteration, generator, bg, aux_data)
         with torch.no_grad():
             lrs = G.group_learning_rates(opt_cfg, iteration,
                                          state.spatial_lr_scale)

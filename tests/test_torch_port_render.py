@@ -145,17 +145,20 @@ def test_cli_device_policy(model_dir):
 
 def test_port_imports_no_jax():
     """Importing every d3gs_tpu_torch module loads no jax, flax or
-    d3gs_tpu module, and none of imageio, matplotlib or PIL, which the
-    card's machine lacks (the modules import them where they are used)."""
+    d3gs_tpu module, and none of imageio, matplotlib, PIL, dearpygui,
+    tensorboard, sam2 or tqdm, which the card's machine lacks (the modules
+    import them where they are used)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import d3gs_tpu_torch\n"
+        "pre = set(sys.modules)\n"   # torch itself imports tqdm where it can
         "for m in pkgutil.walk_packages(d3gs_tpu_torch.__path__,\n"
         "                               'd3gs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "bad = [k for k in set(sys.modules) - pre if k.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'd3gs_tpu', 'imageio',\n"
-        "        'matplotlib', 'PIL')]\n"
+        "        'matplotlib', 'PIL', 'dearpygui', 'tensorboard', 'sam2',\n"
+        "        'tqdm')]\n"
         "print(len([k for k in sys.modules if k.startswith('d3gs_tpu_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -256,7 +256,7 @@ def test_cli_raises_on_unported_trainers(tmp_path):
     test_torch_port_flagship.py); the multi-GPU mesh still raises."""
     from d3gs_tpu_torch.train.__main__ import main
     for trainer in ("baseline", "flagship"):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(NotImplementedError, match="slice 8"):
             main(["-s", str(tmp_path), "-m", str(tmp_path / "m"),
                   "--device", "cpu", "--trainer", trainer,
                   "--mesh_shape", "2"])
