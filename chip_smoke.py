@@ -1896,57 +1896,51 @@ SAM_MASKS = 64
 # within 1e-4 relative, the gradients within 2e-3 of the largest (the
 # blend backward alone agrees to 2e-4; index_add sums in another order)
 SAM_LOSS_RTOL, SAM_GRAD_ERR = 1e-4, 2e-3
+SAM_TIME_REPS = 20               # 4k-a: steps in each timed reading
 FORECAST_CHECK_ERR = 1e-4        # 4k-b: card vs CPU forward, of the largest
 ODE_DEMO_ITERATIONS = 20         # 4k-c: each demo (the CLI's default is 400)
 GUI_TRAIN_ITERATIONS = 50        # 4k-d: train_gui's training route
 SWEEP_ITERATIONS = 4             # 4k-e: each train_loops run (2 warm-up)
 
 
-class Recorder:
-    """Records the SummaryWriter calls a trainer makes."""
-
-    def __init__(self):
-        self.events = []
-
-    def add_scalar(self, tag, value, step):
-        self.events.append(("scalar", tag, int(step), float(value)))
-
-    def add_histogram(self, tag, values, step):
-        self.events.append(("histogram", tag, int(step), np.shape(values)))
-
-    def add_image(self, tag, img, step, dataformats="CHW"):
-        self.events.append(("image", tag, int(step), np.shape(img)))
-
-
-def sam_step_card_vs_cpu(dev, data, mp, num_masks) -> dict:
-    """One deform step with the mask term from the SAM run's checkpoint
-    (Gaussians, deform weights) and its cached SLIC label map, on the card
-    and on the CPU: the loss and the deform gradients."""
+def sam_step_setup(where, data, mp, num_masks):
+    """The SAM run's checkpoint (Gaussians, deform weights) on `where`,
+    its first train camera with that camera's cached SLIC label map, and
+    the trainer's mask term -> (cfg, scene, camera, labels, field, extra)."""
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch.data.scene import Scene
     from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
                                                      load_deform_weights)
     from d3gs_tpu_torch.train import sam_reg as S
     from d3gs_tpu_torch.train.flagship import pick_field_spec
-    from d3gs_tpu_torch.train.step import make_loss_and_grads
     cfg = C.ModelParams(**C.load_cfg_args(mp))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=where)
+    cam = scene.get_train_cameras()[0]
+    lab = np.load(os.path.join(data, "sam_masks_cache",
+                               f"{cam.image_name}_mask.npy"))
+    labels = torch.as_tensor(np.clip(lab, 0, num_masks), dtype=torch.int32,
+                             device=where)
+    field = load_deform_weights(mp, create_deform_field(
+        pick_field_spec(cfg, C.OptimizationParams()), device=where))
+
+    def extra(out, deform_out, camera, state, lab_):
+        dx, dr, ds = deform_out
+        return 0.5 * S.mask_regularization(
+            lab_, num_masks, state.params.xyz + dx, camera.projmatrix,
+            dx, dr, ds, state.alive, camera.width, camera.height)
+    return cfg, scene, cam, labels, field, extra
+
+
+def sam_step_card_vs_cpu(dev, data, mp, num_masks) -> dict:
+    """One deform step with the mask term from the SAM run's checkpoint
+    and its cached SLIC label map, on the card and on the CPU: the loss
+    and the deform gradients."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.train.step import make_loss_and_grads
     res = {}
     for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        scene = Scene(cfg, load_iteration=-1, shuffle=False, device=where)
-        cam = scene.get_train_cameras()[0]
-        lab = np.load(os.path.join(data, "sam_masks_cache",
-                                   f"{cam.image_name}_mask.npy"))
-        labels = torch.as_tensor(np.clip(lab, 0, num_masks), dtype=torch.int32,
-                                 device=where)
-        field = load_deform_weights(mp, create_deform_field(
-            pick_field_spec(cfg, C.OptimizationParams()), device=where))
-
-        def extra(out, deform_out, camera, state, lab_):
-            dx, dr, ds = deform_out
-            return 0.5 * S.mask_regularization(
-                lab_, num_masks, state.params.xyz + dx, camera.projmatrix,
-                dx, dr, ds, state.alive, camera.width, camera.height)
-
+        cfg, scene, cam, labels, field, extra = sam_step_setup(
+            where, data, mp, num_masks)
         step = make_loss_and_grads(
             opt_cfg=C.OptimizationParams(), pipe_cfg=C.PipelineParams(),
             deform_fn=lambda xyz, fid, it, g: field.step(xyz, fid),
@@ -1978,6 +1972,38 @@ def sam_step_card_vs_cpu(dev, data, mp, num_masks) -> dict:
     return out
 
 
+def sam_step_timings(dev, data, mp, num_masks) -> dict:
+    """The deform-phase train step (Adam included) with and without the
+    mask term, on the same checkpoint, camera and label map: CUDA events
+    around SAM_TIME_REPS steps each, in the order plain, mask, mask,
+    plain, so that drift shows as a gap between the two readings."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.train.step import make_train_step
+    cfg, scene, cam, labels, field, extra = sam_step_setup(
+        dev, data, mp, num_masks)
+    bg, dstate = torch.zeros(3, device=dev), field.init_state()
+    state = scene.gaussians
+    steps = {k: make_train_step(
+        opt_cfg=C.OptimizationParams(), pipe_cfg=C.PipelineParams(),
+        deform_fn=lambda xyz, fid, it, g: field.step(xyz, fid),
+        deform_params=list(field.net.parameters()),
+        deform_update_fn=field.update, extra_loss_fn=fn)
+        for k, fn in (("plain", None), ("mask", extra))}
+    ms = {"plain": [], "mask": []}
+    for k in ("plain", "mask", "mask", "plain"):
+        ms[k].append(cuda_ms(lambda k=k: steps[k](
+            state, dstate, cam, 5000, None, bg, labels), SAM_TIME_REPS))
+    out = {"gaussians": int(state.num_alive), "camera": cam.image_name,
+           "reps": SAM_TIME_REPS, "plain_step_ms": ms["plain"],
+           "mask_step_ms": ms["mask"],
+           "ratio": sum(ms["mask"]) / sum(ms["plain"])}
+    log(f"[4k-a] deform train step with and without the mask term, same "
+        f"state and camera: {json.dumps(out)}")
+    if not all(math.isfinite(v) and v > 0 for v in ms["plain"] + ms["mask"]):
+        raise AssertionError(f"4k-a step timings: {out}")
+    return out
+
+
 def hooks_check(dev, data) -> dict:
     """`train_baseline` for a few iterations at full width with a recording
     tb_writer and a live_hook: the JAX trainer's tags at its steps."""
@@ -1985,11 +2011,12 @@ def hooks_check(dev, data) -> dict:
     from d3gs_tpu_torch.data.scene import Scene
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.train.baseline import train_baseline
+    from d3gs_tpu_torch.train.recording_writer import RecordingWriter
     model = C.ModelParams(source_path=data, eval=True, is_blender=True,
                           sh_degree=3)
     opt = C.OptimizationParams(iterations=6, warm_up=3)
     scene = Scene(model, seed=0, device=dev)
-    writer, hooks = Recorder(), []
+    writer, hooks = RecordingWriter(), []
     B.launches = B.launches_bwd = 0
     train_baseline(
         gaussians=scene.gaussians, train_cams=scene.get_train_cameras(),
@@ -2002,8 +2029,8 @@ def hooks_check(dev, data) -> dict:
     torch.cuda.synchronize()
     launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
     steps = {}
-    for kind, tag, step, _ in writer.events:
-        steps.setdefault(tag, []).append(step)
+    for e in writer.events:
+        steps.setdefault(e[1], []).append(e[2])
     want = {"train_loss_patches/total_loss": [1, 2, 4, 6],
             "train_loss_patches/l1_loss": [1, 2, 4, 6],
             "total_points": [1, 2, 4, 6], "iter_time": [1, 2, 4, 6],
@@ -2087,6 +2114,7 @@ def sam_path(dev, data, root) -> dict:
             and len(cache) == 4):
         raise AssertionError(f"4k-a: PSNR {result.test_psnrs}, cache {cache}")
     out["card_vs_cpu"] = sam_step_card_vs_cpu(dev, data_s, mp, SAM_MASKS)
+    out["step_timings"] = sam_step_timings(dev, data_s, mp, SAM_MASKS)
     out["hooks"] = hooks_check(dev, data)
     out["phase_seconds"] = time.perf_counter() - t_start
     return out
@@ -2176,103 +2204,6 @@ def ode_demo_path(root) -> dict:
     return out
 
 
-def viewer_message(width, height, V, full):
-    """A SIBR client message for the row-vector view / full projection
-    (sent with the columns the viewer negates on receipt negated)."""
-    v, f = np.array(V, np.float64), np.array(full, np.float64)
-    v[:, 1:3] *= -1
-    f[:, 1] *= -1
-    fov = math.radians(60)
-    return {"resolution_x": width, "resolution_y": height, "train": True,
-            "fov_x": fov, "fov_y": fov, "z_near": 0.01, "z_far": 100.0,
-            "shs_python": False, "rot_scale_python": False,
-            "keep_alive": True, "scaling_modifier": 1.0,
-            "view_matrix": v.ravel().tolist(),
-            "view_projection_matrix": f.ravel().tolist()}
-
-
-def request_frame(sock, msg):
-    """One message on a connected client socket -> (H, W, 3) uint8 frame."""
-    data = json.dumps(msg).encode()
-    sock.sendall(len(data).to_bytes(4, "little") + data)
-    n = msg["resolution_x"] * msg["resolution_y"] * 3 + 4
-    buf = b""
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
-            raise AssertionError("4k-d: the viewer closed the connection")
-        buf += chunk
-    k = int.from_bytes(buf[-4:], "little")
-    verify = b""
-    while len(verify) < k:
-        verify += sock.recv(k - len(verify))
-    return np.frombuffer(buf[:-4], np.uint8).reshape(
-        msg["resolution_y"], msg["resolution_x"], 3)
-
-
-def serve_frames(args, frames: int, training: bool) -> dict:
-    """`python -m d3gs_tpu_torch.train_gui --no_gui --port 0 <args>` in a
-    subprocess; a loopback client takes `frames` frames of the bench
-    camera, each marked with whether the process had printed "training
-    done" by then; SIGINT (after training, where it trains: the CLI serves
-    until interrupted only then) ends it, which must exit 0."""
-    import select
-    import signal
-    import socket
-    import threading
-    from d3gs_tpu_torch.ops.camera_math import perspective_projection, \
-        world_to_view
-    fov = math.radians(60)
-    V = world_to_view(np.eye(3), np.array([0.0, 0.0, 4.0])).T
-    full = V @ perspective_projection(0.01, 100.0, fov, fov).T
-    msg = viewer_message(WIDTH, HEIGHT, V, full)
-    here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "d3gs_tpu_torch.train_gui", *args,
-         "--no_gui", "--port", "0"], cwd=here, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    lines, got, port = [], [], None
-    t0 = time.perf_counter()
-    try:
-        while port is None and time.perf_counter() - t0 < 300:
-            if proc.poll() is not None:
-                break
-            if select.select([proc.stdout], [], [], 1.0)[0]:
-                line = proc.stdout.readline()
-                lines.append(line)
-                if "127.0.0.1:" in line:
-                    port = int(line.rsplit(":", 1)[1])
-        if port is None:
-            raise AssertionError("4k-d: train_gui did not listen: "
-                                 + "".join(lines)[-2000:])
-        startup = time.perf_counter() - t0
-        done = threading.Event()
-
-        def reader():
-            for line in proc.stdout:
-                lines.append(line)
-                if "training done" in line:
-                    done.set()
-        th = threading.Thread(target=reader, daemon=True)
-        th.start()
-        with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
-            for _ in range(frames):
-                img = request_frame(s, msg)
-                got.append((img, done.is_set(), time.perf_counter() - t0))
-        if training and not done.wait(timeout=600):
-            raise AssertionError("4k-d: training did not end: "
-                                 + "".join(lines)[-2000:])
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(timeout=120)
-        th.join(timeout=30)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    return {"frames": got, "rc": rc, "startup_s": startup,
-            "output": "".join(lines)}
-
-
 def viewer_path(dev, data, mp, root) -> dict:
     """Phase 4k-d: `train_gui --view_only --no_gui` on 4b's checkpoint in a
     subprocess (three loopback frames, SIGINT); in process, `GUI.test_step`
@@ -2286,15 +2217,18 @@ def viewer_path(dev, data, mp, root) -> dict:
                                                      load_deform_weights)
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.train.flagship import pick_field_spec
+    from d3gs_tpu_torch.viewer.client import (client_message, look_from_z,
+                                              serve_train_gui)
     from d3gs_tpu_torch.viewer.gui import GUI
     t_start = time.perf_counter()
     common = ["-s", data, "--is_blender", "--sh_degree", "3"]
-    view = serve_frames(["-m", mp, "--view_only", *common], 3, False)
+    msg = client_message(WIDTH, HEIGHT, *look_from_z(4.0))
+    view = serve_train_gui(["-m", mp, "--view_only", *common], 3, msg)
     cover = [float((img.max(axis=-1) > 0).mean())
-             for img, _, _ in view["frames"]]
+             for img, _, _, _ in view["frames"]]
     log(f"[4k-d] train_gui --view_only --no_gui on 4b's checkpoint: 3 "
         f"frames of {WIDTH}x{HEIGHT}, coverage {cover}, at "
-        f"{[round(t, 2) for _, _, t in view['frames']]} s (listening after "
+        f"{[round(f[3], 2) for f in view['frames']]} s (listening after "
         f"{view['startup_s']:.1f} s); exit code after SIGINT {view['rc']}")
     if view["rc"] != 0 or min(cover) <= 0.05:
         raise AssertionError(f"4k-d view_only: rc {view['rc']}, coverage "
@@ -2328,19 +2262,19 @@ def viewer_path(dev, data, mp, root) -> dict:
         raise AssertionError(f"4k-d GUI.test_step: launches {gui_launches}, "
                              f"max err {gui_err}")
 
-    train = serve_frames(["-m", os.path.join(root, "gui"), *common,
-                          "--iterations", str(GUI_TRAIN_ITERATIONS),
-                          "--warm_up", "20"], 6, True)
-    during = sum(1 for _, d, _ in train["frames"] if not d)
+    train = serve_train_gui(["-m", os.path.join(root, "gui"), *common,
+                             "--iterations", str(GUI_TRAIN_ITERATIONS),
+                             "--warm_up", "20"], 6, msg, wait_done=True)
+    during = sum(1 for _, _, d, _ in train["frames"] if not d)
     log(f"[4k-d] train_gui --no_gui, {GUI_TRAIN_ITERATIONS} iterations: "
         f"{len(train['frames'])} frames, {during} of them through the "
         f"live_hook during training, at "
-        f"{[round(t, 2) for _, _, t in train['frames']]} s; exit code after "
+        f"{[round(f[3], 2) for f in train['frames']]} s; exit code after "
         f"SIGINT {train['rc']}")
     if (train["rc"] != 0 or during < 1
             or "training done" not in train["output"]
             or any(img.shape != (HEIGHT, WIDTH, 3)
-                   for img, _, _ in train["frames"])):
+                   for img, _, _, _ in train["frames"])):
         raise AssertionError(f"4k-d training route: rc {train['rc']}, "
                              f"{during} frames during training: "
                              f"{train['output'][-3000:]}")

@@ -150,8 +150,9 @@ def test_port_imports_no_jax():
     import them where they are used)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import d3gs_tpu_torch\n"
+        "import torch\n"
         "pre = set(sys.modules)\n"   # torch itself imports tqdm where it can
+        "import d3gs_tpu_torch\n"
         "for m in pkgutil.walk_packages(d3gs_tpu_torch.__path__,\n"
         "                               'd3gs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

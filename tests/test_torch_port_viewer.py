@@ -3,7 +3,8 @@ package on the CPU.
 
 * `OrbitCamera` after the same orbit / scale / pan moves: bit-equal poses,
   views and MVPs.
-* The network viewer's round trip (tests/test_viewer.py's client).
+* The network viewer's round trip through the port's loopback client
+  (`d3gs_tpu_torch/viewer/client.py`).
 * `GUI.test_step` at a fixed fid against JAX's, rgb and depth modes, with
   an additive and a direct (ODE-style) deformation: atol 5e-5 / rtol 1e-4
   (the blend tolerance of test_torch_port_blend.py).
@@ -21,11 +22,7 @@ import dataclasses
 import json
 import math
 import os
-import select
-import signal
 import socket
-import subprocess
-import sys
 import threading
 import time
 
@@ -43,17 +40,16 @@ from d3gs_tpu.train.flagship import train_flagship as jax_train_flagship
 from d3gs_tpu.viewer import OrbitCamera as JOrbitCamera
 from d3gs_tpu.viewer.gui import GUI as JGUI
 from d3gs_tpu_torch import config as TC
-from d3gs_tpu_torch.ops.camera_math import perspective_projection, \
-    world_to_view
+from d3gs_tpu_torch.train.recording_writer import RecordingWriter
 from d3gs_tpu_torch.viewer import NetworkViewer, OrbitCamera
+from d3gs_tpu_torch.viewer.client import (client_message, look_from_z,
+                                          request_frame, serve_train_gui)
 from d3gs_tpu_torch.viewer.gui import GUI
 from tests.test_cli_end_to_end import write_blender_dataset
 from tests.test_torch_port_gaussians import to_torch
 from tests.test_torch_port_train import to_torch_camera
 from tests.test_train_static import gt_state, make_camera
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _moves(cam):
@@ -73,48 +69,6 @@ def test_orbit_camera_matches_jax():
     np.testing.assert_allclose(a.view @ a.pose, np.eye(4), atol=1e-5)
 
 
-def _message(width, height, V, full, scale=1.0):
-    """A SIBR client message for the row-vector view / full projection:
-    the viewer negates view columns 1, 2 and projection column 1 on
-    receipt, so they are sent negated."""
-    v, f = np.array(V, np.float64), np.array(full, np.float64)
-    v[:, 1:3] *= -1
-    f[:, 1] *= -1
-    fov = math.radians(60)
-    return {"resolution_x": width, "resolution_y": height, "train": True,
-            "fov_x": fov, "fov_y": fov, "z_near": 0.01, "z_far": 100.0,
-            "shs_python": False, "rot_scale_python": False,
-            "keep_alive": True, "scaling_modifier": scale,
-            "view_matrix": v.ravel().tolist(),
-            "view_projection_matrix": f.ravel().tolist()}
-
-
-def _look_from_z(z):
-    fov = math.radians(60)
-    V = world_to_view(np.eye(3), np.array([0.0, 0.0, z])).T
-    return V, V @ perspective_projection(0.01, 100.0, fov, fov).T
-
-
-def request_frame(sock, msg) -> tuple[np.ndarray, str]:
-    """Send one message on a connected client socket; -> (H, W, 3) uint8
-    frame, verify string."""
-    data = json.dumps(msg).encode()
-    sock.sendall(len(data).to_bytes(4, "little") + data)
-    n = msg["resolution_x"] * msg["resolution_y"] * 3 + 4
-    buf = b""
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        assert chunk, "server closed"
-        buf += chunk
-    k = int.from_bytes(buf[-4:], "little")
-    verify = b""
-    while len(verify) < k:
-        verify += sock.recv(k - len(verify))
-    img = np.frombuffer(buf[:-4], np.uint8).reshape(
-        msg["resolution_y"], msg["resolution_x"], 3)
-    return img, verify.decode()
-
-
 def test_network_viewer_roundtrip():
     viewer = NetworkViewer(port=0)
     got = {}
@@ -126,8 +80,8 @@ def test_network_viewer_roundtrip():
     def client():
         with socket.create_connection(("127.0.0.1", viewer.port),
                                       timeout=10) as s:
-            V, full = _look_from_z(4.0)
-            got["frame"] = request_frame(s, _message(8, 4, V, full, 1.5))
+            V, full = look_from_z(4.0)
+            got["frame"] = request_frame(s, client_message(8, 4, V, full, 1.5))
 
     t = threading.Thread(target=client)
     t.start()
@@ -146,7 +100,7 @@ def test_network_viewer_roundtrip():
     assert verify == "ok" and (img == 127).all()
     # the sign flips undo the client's: the camera is the one sent
     np.testing.assert_allclose(got["cam"].world_view_transform,
-                               _look_from_z(4.0)[0], atol=1e-6)
+                               look_from_z(4.0)[0], atol=1e-6)
 
 
 @pytest.mark.parametrize("mode,direct", [("rgb", False), ("depth", False),
@@ -178,24 +132,6 @@ def test_gui_test_step_matches_jax(mode, direct):
 
 
 # ---- the trainers' tensorboard writer and live hook -------------------
-
-class RecordingWriter:
-    """The SummaryWriter calls the trainers make: (kind, tag, step, shape)."""
-
-    def __init__(self):
-        self.events = []
-
-    def add_scalar(self, tag, value, step):
-        assert math.isfinite(float(value)), tag
-        self.events.append(("scalar", tag, int(step), ()))
-
-    def add_histogram(self, tag, values, step):
-        self.events.append(("histogram", tag, int(step), np.shape(values)))
-
-    def add_image(self, tag, img, step, dataformats="CHW"):
-        self.events.append(("image", tag, int(step), np.shape(img),
-                            dataformats))
-
 
 @pytest.fixture(scope="module")
 def tiny_scene():
@@ -246,6 +182,8 @@ def _run_trainer(package, trainer, js, cams):
             (it, int(st.num_alive), ds is not None, field.spec.kind))
     result = fn(gaussians=state, **kw)
     assert set(result.test_psnrs) == {4, 8}
+    assert all(math.isfinite(v) for vs in writer.scalars.values()
+               for v in vs), writer.scalars
     return writer.events, hooks
 
 
@@ -324,34 +262,14 @@ def _checkpoint(root):
     return data, mp
 
 
-def _serve(args, frames=3, size=(24, 16)):
-    """Run train_gui in a subprocess, take `frames` frames through a
-    loopback client, stop it with SIGINT; -> (frames, stdout, exit code)."""
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "d3gs_tpu_torch.train_gui", *args,
-         "--no_gui", "--port", "0", "--device", "cpu"], cwd=REPO,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    out, port, got = [], None, []
-    try:
-        deadline = time.time() + 120
-        while port is None and time.time() < deadline:
-            if select.select([proc.stdout], [], [], 1.0)[0]:
-                line = proc.stdout.readline()
-                out.append(line)
-                if "127.0.0.1:" in line:
-                    port = int(line.rsplit(":", 1)[1])
-        assert port, "".join(out)
-        V, full = _look_from_z(4.0)
-        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
-            for _ in range(frames):
-                got.append(request_frame(s, _message(*size, V, full)))
-        proc.send_signal(signal.SIGINT)
-        rest, _ = proc.communicate(timeout=60)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    return got, "".join(out) + rest, proc.returncode
+def _serve(args, frames=3, size=(24, 16), wait_done=False):
+    """Run train_gui on the CPU in a subprocess, take `frames` frames
+    through a loopback client, stop it with SIGINT; -> (frames as (image,
+    verify), stdout, exit code)."""
+    r = serve_train_gui([*args, "--device", "cpu"], frames,
+                        client_message(*size, *look_from_z(4.0)),
+                        wait_done=wait_done, timeout=120)
+    return [f[:2] for f in r["frames"]], r["output"], r["rc"]
 
 
 def test_train_gui_serves_and_stops_on_sigint(tmp_path):
@@ -365,7 +283,8 @@ def test_train_gui_serves_and_stops_on_sigint(tmp_path):
         assert verify == data
     frames, out, rc = _serve(["-m", str(tmp_path / "gui"), *common,
                               "--iterations", "30", "--warm_up", "10",
-                              "--max_gaussians", "300"], frames=4)
+                              "--max_gaussians", "300"], frames=4,
+                             wait_done=True)
     assert rc == 0 and "training done" in out, out
     assert all(img.shape == (16, 24, 3) for img, _ in frames)
 
