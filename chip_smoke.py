@@ -58,7 +58,8 @@ Phases (any failure exits non-zero):
      4g. distillation: `d3gs_tpu_torch.train_synth_gau` with 4b's
          checkpoint as the teacher and the 8x256 ODE student (adaptive),
          5 iterations, a bounded trajectory loss and a PSNR evaluation;
-     4h. the synthetic-ODE CLIs at their defaults, then `step_multi` on
+     4h. the synthetic-ODE CLIs (60 of the default 500 training
+         iterations), then `step_multi` on
          (16, 10) per-sample grids (simple_start, adaptive, a duplicate
          time, a parameter gradient) on the card against the CPU;
      4i. the baseline CLI with `--deform_dtype bfloat16`, 10 iterations
@@ -85,6 +86,19 @@ Phases (any failure exits non-zero):
          SIGINT with exit code 0, and `GUI.test_step` against the plain
          blend; (e) `train_loops.main` on 4d's set, sequence lengths 6 and
          12;
+     4l. multi-GPU (`d3gs_tpu_torch/parallel/`) on the one card: (a) the
+         bench frame cut into 2 and 4 strips of tile rows, both blend
+         kernels on each strip at its tile_y0 against their plain versions,
+         the strips against the whole frame; (b) `torchrun --standalone
+         --nproc_per_node 1 -m d3gs_tpu_torch.train --trainer flagship
+         --is_ode --mesh_shape 1` in both layouts on 4d's set (NCCL, 6
+         iterations, a densify pass, an evaluation, a checkpoint and its
+         render), the first loss held to 4d's; (c) ranks sharing the card
+         over gloo (torch.multiprocessing, a FileStore): the sharded
+         render at D = 4, a camera-parallel step at D = 2, gauss+tile
+         steps at D = 4 and 2 x 2, each against the single-device step,
+         with the collectives' bytes per step; (d) the world-size-1
+         camera and gauss+tile steps timed beside the single-device step;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, both blend
      kernels alone (CUDA events and profiler device time) on the bench
@@ -183,6 +197,9 @@ SIMPLE_START_ITERATIONS = 4      # 4f: adaptive simple_start (2 warm-up)
 DISTILL_ITERATIONS = 5           # 4g: distillation steps
 BF16_ITERATIONS = 10             # 4i: the baseline CLI in bf16
 SYNTH_GRID = (16, 10)            # 4h: per-sample (N, T) grids
+# 4h: train_synth_ode's iterations, cut from its default 500 (167-225 s,
+# host-bound) to make room for 4l within the call's time limit
+SYNTH_ITERATIONS = 60
 ADAPTIVE_TOL = (1e-3, 1e-4)      # rtol, atol of the adaptive paths
 # 4h: card against CPU at rtol 1e-5 / atol 1e-7, within 2e-3 of the
 # largest value and gradient (tests/test_torch_port_ode_adaptive.py holds
@@ -277,8 +294,20 @@ def stages(state, cam, field, bg, dup=0):
     """The render path of models/renderer.py, stage by stage:
     -> (records, bins, grid kwargs)."""
     from d3gs_tpu_torch.ops.binning import bin_splats_records
-    from d3gs_tpu_torch.ops.projection import project_gaussians
     from d3gs_tpu_torch.ops.rasterize import pack_records
+    splats = stage_splats(state, cam, field)
+    tiles_x, tiles_y = (cam.width + 15) // 16, (cam.height + 15) // 16
+    bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y,
+                              dup_capacity=dup)
+    grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=cam.width,
+                height=cam.height)
+    return pack_records(splats), bins, grid
+
+
+@torch.no_grad()
+def stage_splats(state, cam, field):
+    """`stages` up to the projection: -> ProjectedSplats."""
+    from d3gs_tpu_torch.ops.projection import project_gaussians
     from d3gs_tpu_torch.ops.sh import eval_sh_upto
     from d3gs_tpu_torch.models.deform.fields import ODE_KINDS
     xyz, d_rot, d_sc = state.params.xyz, 0.0, 0.0
@@ -290,16 +319,10 @@ def stages(state, cam, field, bg, dup=0):
     dirs = dirs / dirs.norm(dim=-1, keepdim=True).clamp_min(1e-8)
     colors = (eval_sh_upto(state.max_sh_degree, state.active_sh_degree,
                            state.get_features, dirs) + 0.5).clamp_min(0.0)
-    splats = project_gaussians(
+    return project_gaussians(
         xyz, state.get_scaling + d_sc, state.get_rotation + d_rot,
         state.get_opacity[:, 0], colors, cam.viewmatrix, cam.projmatrix,
         cam.tanfovx, cam.tanfovy, cam.width, cam.height, alive=state.alive)
-    tiles_x, tiles_y = (cam.width + 15) // 16, (cam.height + 15) // 16
-    bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y,
-                              dup_capacity=dup)
-    grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=cam.width,
-                height=cam.height)
-    return pack_records(splats), bins, grid
 
 
 def small_scenes(dev):
@@ -637,7 +660,7 @@ def finish_contracted_build(proc, lib):
 
 
 def forward_with(fn, records, gid, starts, bg, *, tiles_x, tiles_y, width,
-                 height, out=None):
+                 height, out=None, tile_y0=0):
     """One launch of a forward kernel's C entry `fn`, into `out` or fresh
     outputs."""
     from d3gs_tpu_torch.ops import blend as B
@@ -653,7 +676,7 @@ def forward_with(fn, records, gid, starts, bg, *, tiles_x, tiles_y, width,
             last_contrib=empty(height, width, dt=torch.int32))
     err = fn(records.data_ptr(), records.stride(0), gid.data_ptr(),
              starts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, width,
-             height, out.image.data_ptr(), out.depth.data_ptr(),
+             height, tile_y0, out.image.data_ptr(), out.depth.data_ptr(),
              out.alpha.data_ptr(), out.t_final.data_ptr(),
              out.log_t.data_ptr(), out.n_walked.data_ptr(),
              out.last_contrib.data_ptr(),
@@ -1391,7 +1414,7 @@ def flagship_main_path(dev, data, mp) -> dict:
         f"blend of the ODE field's positions: max {diff} of 255")
     if diff > 1:
         raise AssertionError("flagship render disagrees with the plain blend")
-    return launches
+    return launches, result.losses[0][1]
 
 
 def ode_counts() -> dict:
@@ -1556,8 +1579,9 @@ def distill_path(dev, data, teacher, mp) -> dict:
 
 
 def synth_paths(dev, out_dir) -> dict:
-    """Phase 4h: the synthetic-ODE CLIs at their defaults (500 iterations,
-    16 windows of 10 on per-sample grids, the `simple` net, RK4), then
+    """Phase 4h: the synthetic-ODE CLIs at their defaults but the
+    iterations (SYNTH_ITERATIONS of 500; 16 windows of 10 on per-sample
+    grids, the `simple` net, RK4), then
     `step_multi` of a `simple_start` field on (16, 10) per-sample grids
     with a duplicate time, adaptive, with a parameter gradient: on the
     card against the same call on the CPU, in this process."""
@@ -1565,11 +1589,13 @@ def synth_paths(dev, out_dir) -> dict:
     from d3gs_tpu_torch.models.deform import fields as F
     from d3gs_tpu_torch.models.deform import ode as O
     t0 = time.perf_counter()
-    mse = train_synth_ode.main(["--out", out_dir])
+    mse = train_synth_ode.main(["--out", out_dir, "--iterations",
+                                str(SYNTH_ITERATIONS)])
     mse2 = render_synth_ode.main(["--params", os.path.join(
         out_dir, "deform_params.npz"), "--out", out_dir])
     wall = time.perf_counter() - t0
-    log(f"[4h] train_synth_ode / render_synth_ode at their defaults: "
+    log(f"[4h] train_synth_ode ({SYNTH_ITERATIONS} iterations) / "
+        f"render_synth_ode at their defaults: "
         f"rollout MSE {mse} / {mse2} in {wall:.1f} s")
     if not (math.isfinite(mse) and abs(mse2 - mse) <= 1e-6 * max(mse, 1)):
         raise AssertionError(f"4h: rollout MSE {mse} vs {mse2}")
@@ -2315,6 +2341,481 @@ def sweep_path(dev, data_f, root) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 4l: multi-GPU (d3gs_tpu_torch/parallel/) on the one card
+# --------------------------------------------------------------------------
+
+STRIP_MESHES = (2, 4)            # 4l-a: strips of the bench frame
+MESH_ITERATIONS = 6              # 4l-b: each torchrun run (3 warm-up)
+MESH_LOSS_RTOL = 1e-5            # 4l-b: its first loss vs 4d's
+GLOO_K = 4                       # 4l-c: cameras of each gloo step
+# 4l-c: sharded vs single-device step on the card, tests/test_parallel.py's
+# tolerances (absolute, the loss relative)
+GLOO_TOL = {"loss": 1e-5, "xyz": 2e-6, "opacity": 2e-6, "deform": 5e-6,
+            "max_radii2d": 1e-6}
+MESH_TIME_REPS = 3               # 4l-d: steps per reading
+
+
+def strip_kernels(dev, state, cam, field, bg) -> dict:
+    """Phase 4l-a: the bench frame (4d's ODE field at t = 0.5 off, phase
+    3's MLP on) cut into D strips of ceil(25 / D) tile rows, D in
+    STRIP_MESHES: both kernels on each strip at tile_y0 = s * rows held
+    against their plain versions at the same offset (phase 3's bounds),
+    the strips' images concatenated against the whole frame's (expected
+    bit-equal) and the strips' record gradients summed against the whole
+    frame's (2e-4 of the largest)."""
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops.binning import bin_splats_records
+    from d3gs_tpu_torch.ops.rasterize import pack_records_full
+    splats = stage_splats(state, cam, field)
+    records = pack_records_full(splats)
+    tiles_x = tiles_y = (WIDTH + 15) // 16
+    full_grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=WIDTH,
+                     height=HEIGHT)
+    full_bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y)
+    full = B.blend_forward_cuda(records, full_bins, bg, **full_grid)
+    g_img, g_dep, g_alp = blend_loss_grads(full)
+    g_full = B.blend_backward_cuda(records, full_bins, bg, full, g_img,
+                                   g_dep, g_alp, **full_grid)
+    out = {}
+    for d in STRIP_MESHES:
+        rows = -(-tiles_y // d)
+        sh = rows * 16
+        images, g_sum, errs = [], torch.zeros_like(g_full), []
+        for s in range(d):
+            y0 = s * rows
+            bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=rows,
+                                      tile_y0=y0)
+            grid = dict(tiles_x=tiles_x, tiles_y=rows, width=WIDTH,
+                        height=sh, tile_y0=y0)
+            name = f"4l strip {s} of {d} (tile_y0 = {y0})"
+            errs.append((compare_blend(name, records, bins, bg, grid),
+                         compare_blend_bwd(name, records, bins, bg, grid,
+                                           BWD_TOL["bench"])))
+            fwd = B.blend_forward_cuda(records, bins, bg, **grid)
+            images.append(fwd.image)
+            # the whole frame's upstream gradients on the strip's rows
+            n = max(0, min(sh, HEIGHT - 16 * y0))
+            gi, gd, ga = (torch.zeros((sh,) + t.shape[1:], device=dev)
+                          for t in (g_img, g_dep, g_alp))
+            for dst, src in ((gi, g_img), (gd, g_dep), (ga, g_alp)):
+                dst[:n] = src[16 * y0:16 * y0 + n]
+            g_sum += B.blend_backward_cuda(records, bins, bg, fwd, gi, gd,
+                                           ga, **grid)
+        frame_err = float((torch.cat(images)[:HEIGHT] - full.image).abs()
+                          .max())
+        grad_err = float((g_sum - g_full).abs().max()
+                         / g_full.abs().max())
+        out[d] = {"strip_h": sh, "padding_rows": d * sh - HEIGHT,
+                  "max_abs_err_fwd_bwd": errs,
+                  "strips_vs_frame_image": frame_err,
+                  "strip_grads_vs_frame_of_largest": grad_err}
+        log(f"[4l-a] {d} strips of {sh} rows: strips vs the whole frame "
+            f"max |image| {frame_err:.3e} (expected 0), summed record "
+            f"gradients {grad_err:.2e} of the largest (tol "
+            f"{BWD_TOL['bench']})")
+        if frame_err > ATOL or grad_err > BWD_TOL["bench"]:
+            raise AssertionError(f"4l-a: strips disagree with the frame: "
+                                 f"{out[d]}")
+    return out
+
+
+def run_group(cmd, timeout, **kw) -> subprocess.CompletedProcess:
+    """subprocess.run in a session of its own, killed whole (torchrun and
+    its workers) if it outlives `timeout`."""
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, **kw)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{cmd[:6]} timed out after {timeout} s:\n"
+                             f"{out[-3000:]}")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, "")
+
+
+def mesh_cli(dev, data, root, first_loss) -> dict:
+    """Phase 4l-b: `torchrun --standalone --nproc_per_node 1 -m
+    d3gs_tpu_torch.train --trainer flagship --is_ode --mesh_shape 1` on
+    4d's set in both layouts, MESH_ITERATIONS iterations (warm-up to 3,
+    the switch to Gaussian-only at 5, a densify pass at 4, an evaluation
+    and a checkpoint), rank 0 on cuda:0 over NCCL; its checkpoint rendered
+    by `render.main`. Each run's backend must read nccl, its first loss
+    4d's (same seed and picks) within MESH_LOSS_RTOL, its blend launches
+    cover its steps."""
+    import re
+    from d3gs_tpu_torch import render as R
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    it, k = MESH_ITERATIONS, FLAGSHIP_K
+    out = {}
+    for mode in ("camera", "gauss_tile"):
+        mp = os.path.join(root, f"mesh_{mode}")
+        t0 = time.perf_counter()
+        run = run_group([
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "d3gs_tpu_torch.train",
+            "-s", data, "-m", mp, "--eval", "--is_blender", "--trainer",
+            "flagship", "--is_ode", "--D", "8", "--W", "256",
+            "--num_cams_per_iter", str(k), "--iterations", str(it),
+            "--warm_up", "3", "--use_iterative_update",
+            "--iterative_update_interval", "5", "--max_training_switches",
+            "1", "--sh_degree", "3", "--densify_from_iter", "3",
+            "--densify_until_iter", str(it), "--densification_interval",
+            "4", "--densify_grad_threshold", "1e-8", "--test_iterations",
+            str(it), "--save_iterations", str(it), "--mesh_shape", "1",
+            "--mesh_mode", mode], timeout=400, cwd=repo, env=env)
+        wall = time.perf_counter() - t0
+        text = run.stdout
+        backend = re.search(r"^mesh: .*backend (\w+)", text, re.M)
+        loss = re.search(rf"\[flagship 1/{it}\] loss \S+ \(step (\S+)\)",
+                         text)
+        launches = re.search(r"rank 0: blend kernel launches: forward "
+                             r"(\d+), backward (\d+)", text)
+        psnr = re.search(r"Best PSNR = (\S+)", text)
+        if run.returncode or not (backend and loss and launches and psnr):
+            raise AssertionError(f"4l-b {mode}: rc {run.returncode}:\n"
+                                 f"{text[-4000:]}")
+        rec = {"backend": backend.group(1), "first_loss": float(
+            loss.group(1)), "launches": {"blend_fwd": int(launches.group(
+                1)), "blend_bwd": int(launches.group(2))},
+            "best_psnr": float(psnr.group(1)), "seconds": wall}
+        rec["first_loss_vs_4d"] = abs(rec["first_loss"] - first_loss) / abs(
+            first_loss)
+        t1 = time.perf_counter()
+        rendered = R.main(["-m", mp, "--mode", "render"])
+        torch.cuda.synchronize()
+        rec["render"] = rendered
+        rec["render_seconds"] = time.perf_counter() - t1
+        out[mode] = rec
+        log(f"[4l-b] torchrun --nproc_per_node 1 --mesh_shape 1 --mesh_mode "
+            f"{mode}: {json.dumps(rec)}")
+        if (rec["backend"] != "nccl"
+                or not rec["first_loss_vs_4d"] <= MESH_LOSS_RTOL
+                or rec["launches"]["blend_bwd"] < it * k
+                or rec["launches"]["blend_fwd"] < it * k + FLAGSHIP_VIEWS[1]
+                or rendered != {"iteration": it,
+                                "views": sum(FLAGSHIP_VIEWS)}
+                or not math.isfinite(rec["best_psnr"])):
+            raise AssertionError(f"4l-b {mode}: {rec} (4d's first loss "
+                                 f"{first_loss})")
+    return out
+
+
+def _map_state(st, fn):
+    """A GaussianState (or a DeformState) with `fn` applied to every
+    tensor: moves one between the card and the host."""
+    import dataclasses
+    from d3gs_tpu_torch.models import gaussians as G
+    if not isinstance(st, G.GaussianState):
+        return dataclasses.replace(st, m=[fn(x) for x in st.m],
+                                   v=[fn(x) for x in st.v])
+    gp = lambda p: G.GaussianParams(*(fn(x) for x in p))  # noqa: E731
+    return dataclasses.replace(
+        st, params=gp(st.params), alive=fn(st.alive),
+        grad_accum=fn(st.grad_accum), denom=fn(st.denom),
+        max_radii2d=fn(st.max_radii2d),
+        opt=G.AdamState(gp(st.opt.m), gp(st.opt.v), st.opt.count))
+
+
+def _mesh_field(payload, dev):
+    """-> (model config, opt config, the payload's deform field on dev)."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.models.deform.fields import create_deform_field
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    model = C.ModelParams(**payload["model"])
+    opt = C.OptimizationParams(**payload["opt"])
+    field = create_deform_field(pick_field_spec(model, opt), seed=11,
+                                device=dev, opt_cfg=opt)
+    if payload.get("weights"):
+        field.net.load_state_dict({k: v.to(dev) for k, v in
+                                   payload["weights"].items()})
+    return model, opt, field
+
+
+def _step_result(st, field) -> dict:
+    return {"xyz": st.params.xyz.cpu(), "opacity": st.params.opacity.cpu(),
+            "max_radii2d": st.max_radii2d.cpu(),
+            "deform": [p.detach().cpu() for p in field.net.parameters()]}
+
+
+def _gloo_rank(rank, world, folder, shape, tasks):
+    """One rank of phase 4l-c: gloo over a FileStore, on the payload's
+    device (cuda:0) with the others. Runs `tasks` in order; writes
+    rank<r>.pt."""
+    import dataclasses
+    import torch.distributed as dist
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops.sh import eval_sh_upto
+    from d3gs_tpu_torch.parallel import comm
+    from d3gs_tpu_torch.parallel import mesh as M
+    from d3gs_tpu_torch.parallel import sharded as S
+    payload = torch.load(os.path.join(folder, "payload.pt"),
+                         weights_only=False)
+    dev = torch.device(payload["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(folder, "store"), world), rank=rank, world_size=world)
+    try:
+        mesh = M.make_mesh_2d(*shape, dev) if shape else M.make_mesh(dev)
+        cams = [dataclasses.replace(c, **{
+            f: getattr(c, f).to(dev) for f in ("viewmatrix", "projmatrix",
+                                               "campos", "image")})
+                for c in payload["cams"]]
+        bg = torch.zeros(3, device=dev)
+        out = {"tile_y0": S.strip_grid(WIDTH, HEIGHT, mesh).tile_y0}
+        for task in tasks:
+            B.launches = B.launches_bwd = 0
+            comm.reset_bytes()
+            state = _map_state(payload["state"], lambda t: t.to(dev))
+            if task == "render":
+                st = M.shard_gaussian_state(state, mesh)
+                cam = cams[0]
+                dirs = st.params.xyz - cam.campos
+                dirs = dirs / dirs.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+                colors = (eval_sh_upto(st.max_sh_degree, st.active_sh_degree,
+                                       st.get_features, dirs)
+                          + 0.5).clamp_min(0.0)
+                fn = S.make_sharded_render(mesh, width=WIDTH, height=HEIGHT,
+                                           pipe_cfg=C.PipelineParams())
+                with torch.no_grad():
+                    img = fn(st.params.xyz, st.get_scaling, st.get_rotation,
+                             colors, st.get_opacity[:, 0], st.alive, cam, bg,
+                             torch.zeros((st.capacity, 2), device=dev))[0]
+                res = {"image": img.cpu()}
+            else:
+                model, opt, field = _mesh_field(payload, dev)
+                kw = dict(opt_cfg=opt, pipe_cfg=C.PipelineParams(),
+                          model_cfg=model, field=field)
+                if task == "camera":
+                    step = S.make_flagship_camera_parallel_step(mesh, **kw)
+                else:
+                    step = S.make_flagship_gauss_tile_step(
+                        mesh, width=WIDTH, height=HEIGHT, **kw)
+                    state = M.shard_gaussian_state(state, mesh)
+                dstate = _map_state(payload["deform_state"],
+                                    lambda t: t.to(dev))
+                t0 = time.perf_counter()
+                st, _, aux = step(state, dstate, cams,
+                                  payload["iteration"], bg)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                nbytes = dict(comm.BYTES)
+                if task != "camera":
+                    st = M.gather_gaussian_state(st, mesh)
+                res = {"loss": float(aux.loss), **_step_result(st, field),
+                       "bytes": nbytes, "seconds": seconds}
+            res["launches"] = {"blend_fwd": B.launches,
+                               "blend_bwd": B.launches_bwd}
+            out[task] = res
+        torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_ranks(dev, state, cams, root) -> dict:
+    """Phase 4l-c: ranks that share the card over gloo (spawned by
+    torch.multiprocessing around a FileStore, all on cuda:0; gloo's
+    collectives take CUDA tensors through the host, `parallel/comm.py`),
+    from 4d's checkpoint with a fresh 8x256 Blender deform MLP and the
+    first GLOO_K of 4d's cameras by fid. One single-device step first sets
+    the Adam moments (a first step from zero moments moves each parameter
+    by ±lr whatever its gradient, so a gradient at rounding level would
+    flip it); from there the sharded render at D = 4 against the
+    single-device render, one camera-parallel flagship step at D = 2, one
+    gauss+tile step at D = 4 and one on the 2 x 2 mesh, each against the
+    single-device step on the card (GLOO_TOL). Also reads each layout's
+    collective bytes per step and every rank's blend launches beside its
+    strip's tile_y0."""
+    import dataclasses
+    import torch.multiprocessing as mp
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.models.renderer import render
+    from d3gs_tpu_torch.train.flagship import make_batched_step
+    bg = torch.zeros(3, device=dev)
+    cams = sorted(cams, key=lambda c: c.fid)[:GLOO_K]
+    payload = {"model": dict(is_blender=True, D=8, W=256, sh_degree=3),
+               "opt": dict(num_cams_per_iter=GLOO_K), "iteration": 50,
+               "device": str(dev)}
+    mcfg, ocfg, fld = _mesh_field(payload, dev)
+
+    def single_step(st, dstate):
+        step = make_batched_step(opt_cfg=ocfg, pipe_cfg=C.PipelineParams(),
+                                 model_cfg=mcfg, field=fld,
+                                 update_gaussians=True, update_deform=True,
+                                 use_deform=True)
+        return step(st, dstate, cams, payload["iteration"], bg)
+
+    st1, d1, _ = single_step(state, fld.init_state())
+    payload.update(
+        state=_map_state(st1, lambda t: t.cpu()),
+        deform_state=_map_state(d1, lambda t: t.cpu()),
+        weights={k: v.detach().cpu() for k, v in fld.net.state_dict()
+                 .items()},
+        cams=[dataclasses.replace(c, **{
+            f: getattr(c, f).cpu() for f in ("viewmatrix", "projmatrix",
+                                             "campos", "image")})
+              for c in cams])
+    runs = {"d4": (4, None, ["render", "gauss_tile"]),
+            "d2": (2, None, ["camera"]), "2x2": (4, (2, 2), ["gauss_tile"])}
+    results = {}
+    for name, (world, shape, tasks) in runs.items():
+        folder = os.path.join(root, f"gloo_{name}")
+        os.makedirs(folder)
+        torch.save(payload, os.path.join(folder, "payload.pt"))
+        t0 = time.perf_counter()
+        mp.spawn(_gloo_rank, args=(world, folder, shape, tasks),
+                 nprocs=world)
+        results[name] = [torch.load(os.path.join(folder, f"rank{r}.pt"),
+                                    weights_only=False)
+                         for r in range(world)]
+        log(f"[4l-c] {world} gloo ranks on {dev} "
+            f"({'x'.join(map(str, shape)) if shape else '1D'}): {tasks} in "
+            f"{time.perf_counter() - t0:.1f} s; per rank tile_y0 and blend "
+            f"launches: " + json.dumps([
+                {"tile_y0": r["tile_y0"], **{t: r[t]["launches"]
+                                             for t in tasks}}
+                for r in results[name]]))
+
+    # the single-device references on the card, from the same payload
+    with torch.no_grad():
+        ref_img = render(st1, cams[0], bg=bg).image.cpu()
+    mcfg, ocfg, fld = _mesh_field(payload, dev)
+    ref_st, _, ref_aux = single_step(
+        st1, _map_state(payload["deform_state"], lambda t: t.to(dev)))
+    ref = {"loss": float(ref_aux.loss), **_step_result(ref_st, fld)}
+    out = {"render_d4": max(float((r["render"]["image"] - ref_img).abs()
+                                  .max()) for r in results["d4"])}
+    log(f"[4l-c] sharded render at D = 4 vs the single-device render: max "
+        f"{out['render_d4']:.3e} (tol {ATOL})")
+    if out["render_d4"] > ATOL:
+        raise AssertionError(f"4l-c: the D = 4 render differs from the "
+                             f"single-device one by {out['render_d4']}")
+    for name, task in (("d2", "camera"), ("d4", "gauss_tile"),
+                       ("2x2", "gauss_tile")):
+        errs = {}
+        for r in results[name]:
+            got = r[task]
+            e = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                 "deform": max(float((a - b).abs().max()) for a, b in
+                               zip(got["deform"], ref["deform"]))}
+            for f in ("xyz", "opacity", "max_radii2d"):
+                e[f] = float((got[f] - ref[f]).abs().max())
+            errs = {f: max(v, errs.get(f, 0.0)) for f, v in e.items()}
+        r0 = results[name][0][task]
+        out[f"{task}_{name}"] = {"errors": errs, "bytes": r0["bytes"],
+                                 "step_seconds": r0["seconds"]}
+        log(f"[4l-c] {task} step on {name}: largest error over the ranks "
+            f"{json.dumps(errs)} (tol {json.dumps(GLOO_TOL)}); rank 0's "
+            f"collective bytes {json.dumps(r0['bytes'])}; "
+            f"{r0['seconds']:.2f} s a step")
+        bad = {f: v for f, v in errs.items() if not v <= GLOO_TOL[f]}
+        if bad:
+            raise AssertionError(f"4l-c {task} on {name}: {bad}")
+    out["launches"] = {name: [{"tile_y0": r["tile_y0"],
+                               **{t: r[t]["launches"] for t in tasks}}
+                              for r in results[name]]
+                       for name, (_, _, tasks) in runs.items()}
+    if not any(r["tile_y0"] > 0 and r["gauss_tile"]["launches"]["blend_bwd"]
+               for r in results["d4"]):
+        raise AssertionError("4l-c: no strip kernel launched at tile_y0 > 0")
+    out["comms_model"] = comms_model(state, payload["weights"], GLOO_K)
+    log(f"[4l-c] per-step byte model: {json.dumps(out['comms_model'])}")
+    return out
+
+
+def comms_model(state, weights, k) -> dict:
+    """d3gs_tpu_torch/parallel/__init__.py's per-step bytes for `state`'s
+    capacity N, the deform net and k cameras at 400 x 400: the camera
+    layout's all-reduce (the 59 parameter floats and the tap's 2 per
+    Gaussian, the net) and max-reduce (radii), the gauss+tile layout's
+    all-gather and reduce-scatter (64 B per Gaussian and camera each)."""
+    n = state.capacity
+    floats = sum(p[:1].numel() for p in state.params)
+    mlp = sum(v.numel() for v in weights.values())
+    return {"N": n, "param_floats": floats, "mlp_params": mlp,
+            "camera_all_reduce": 4 * ((floats + 2) * n + mlp),
+            "camera_pmax": 4 * (n + 1),
+            "gauss_tile_all_gather": 64 * n * k,
+            "gauss_tile_reduce_scatter": 64 * n * k,
+            "gauss_tile_deform_all_reduce": 4 * mlp}
+
+
+def mesh_step_timings(dev, state, bg, root) -> dict:
+    """Phase 4l-d: one flagship step at k = FLAGSHIP_K (the 8x256 Blender
+    MLP kind, 4d-style cameras) on the card, single-device and through the
+    camera-parallel and gauss+tile steps on a world of 1 over NCCL (this
+    process joins a group of one around a FileStore), CUDA events, read
+    single, camera, gauss+tile, gauss+tile, camera, single: the sharded
+    code's overhead with no traffic."""
+    import dataclasses
+    import torch.distributed as dist
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.models.deform.fields import create_deform_field
+    from d3gs_tpu_torch.parallel import mesh as M
+    from d3gs_tpu_torch.parallel import sharded as S
+    from d3gs_tpu_torch.train.flagship import (make_batched_step,
+                                               pick_field_spec)
+    k = FLAGSHIP_K
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cams = [dataclasses.replace(
+        look_from_z(4.0, WIDTH, dev, fid=i / (k - 1)),
+        image=torch.rand((HEIGHT, WIDTH, 3), device=dev, generator=gen))
+        for i in range(k)]
+    model = C.ModelParams(is_blender=True, D=8, W=256, sh_degree=3)
+    opt, pipe = C.OptimizationParams(num_cams_per_iter=k), C.PipelineParams()
+    field = create_deform_field(pick_field_spec(model, opt), seed=4,
+                                device=dev, opt_cfg=opt)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(root, "nccl_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = M.make_mesh(dev)
+        kw = dict(opt_cfg=opt, pipe_cfg=pipe, model_cfg=model, field=field,
+                  update_gaussians=True, update_deform=True, use_deform=True)
+        shard = M.shard_gaussian_state(state, mesh)
+        steps = {"single": (make_batched_step(**kw), state),
+                 "camera": (S.make_flagship_camera_parallel_step(mesh, **kw),
+                            state),
+                 "gauss_tile": (S.make_flagship_gauss_tile_step(
+                     mesh, width=WIDTH, height=HEIGHT, **kw), shard)}
+        dstate = field.init_state()
+        ms = {name: [] for name in steps}
+        for name in ("single", "camera", "gauss_tile", "gauss_tile",
+                     "camera", "single"):
+            fn, st = steps[name]
+            ms[name].append(cuda_ms(lambda fn=fn, st=st: fn(
+                st, dstate, cams, 5000, bg), MESH_TIME_REPS, warmup=1))
+        out = {"backend": dist.get_backend(), "k": k, "ms": ms}
+    finally:
+        dist.destroy_process_group()
+    log(f"[4l-d] flagship MLP step, k = {k}, world size 1: {json.dumps(out)}")
+    return out
+
+
+def mesh_path(dev, data_f, flagship_mp, first_loss, bench_state, field,
+              cam, root) -> dict:
+    """Phase 4l: multi-GPU on the one card (a-d above)."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.scene import Scene
+    t0 = time.perf_counter()
+    bg = torch.zeros(3, device=dev)
+    out = {"strips": strip_kernels(dev, bench_state, cam, field, bg)}
+    out["cli"] = mesh_cli(dev, data_f, root, first_loss)
+    scene = Scene(C.ModelParams(**C.load_cfg_args(flagship_mp)),
+                  load_iteration=-1, shuffle=False, device=dev)
+    out["gloo"] = gloo_ranks(dev, scene.gaussians,
+                             scene.get_train_cameras(), root)
+    out["timings"] = mesh_step_timings(dev, bench_state, bg, root)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[4l] took {out['seconds']:.1f} s")
+    return out
+
+
 def blend_kernel_times(records, bins, bg, grid) -> dict:
     """Phase 5: both blend kernels alone on one scene, launched into
     preallocated outputs (so the wrappers' host work, checks and
@@ -2831,8 +3332,8 @@ def main() -> int:
         # ---- 4d. main path: the flagship ODE trainer --------------------
         data_f = os.path.join(tmp, "data_flagship")
         write_dnerf_dataset(data_f, dev, *FLAGSHIP_VIEWS, size=WIDTH)
-        launches = flagship_main_path(dev, data_f,
-                                      os.path.join(tmp, "flagship"))
+        launches, flagship_first_loss = flagship_main_path(
+            dev, data_f, os.path.join(tmp, "flagship"))
         # ---- 4e / 4f. the adaptive solver in the flagship trainer -------
         adaptive = adaptive_flagship_path(
             dev, data_f, os.path.join(tmp, "adaptive"), kind_flag="--is_ode",
@@ -2868,6 +3369,9 @@ def main() -> int:
                       "sweep": side["sweep"]["seconds"]}
         log(f"[4k] took {time.perf_counter() - t4k:.1f} s: "
             f"{json.dumps(seconds_4k)}")
+        # ---- 4l. multi-GPU on the one card ------------------------------
+        mesh = mesh_path(dev, data_f, os.path.join(tmp, "flagship"),
+                         flagship_first_loss, state, field, cam, tmp)
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
         f"{launches}, adaptive flagship {adaptive['launches']}, "
@@ -2876,7 +3380,9 @@ def main() -> int:
         f"{json.dumps(eval_['launches'])}, sam {side['sam']['launches']}, "
         f"sam hooks {side['sam']['hooks']['launches']}, gui test_step "
         f"{side['viewer']['gui_launches']}, sweep "
-        f"{side['sweep']['launches']}")
+        f"{side['sweep']['launches']}, mesh (ranks) "
+        f"{json.dumps(mesh['gloo']['launches'])}, mesh CLI "
+        f"{json.dumps({m: r['launches'] for m, r in mesh['cli'].items()})}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,

@@ -73,8 +73,8 @@ class PipelineParams:
     tight_cull: bool = False
     capacity: int = 0               # padded gaussian buffer (0 = auto)
     antialias: bool = False         # filter-norm style opacity compensation
-    mesh_shape: str = ""
-    mesh_mode: str = "camera"
+    mesh_shape: str = ""            # multi-GPU: "D" or "CxS" (torchrun)
+    mesh_mode: str = "camera"       # camera | gauss_tile (parallel/)
     depth_grad: bool = False
     train_matmul_precision: str = "bfloat16"
     steps_per_dispatch: int = 1

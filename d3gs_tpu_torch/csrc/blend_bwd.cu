@@ -64,7 +64,7 @@ blend_bwd_kernel(const float* __restrict__ records, int record_stride,
                  const int* __restrict__ gid,
                  const int* __restrict__ starts,
                  const float* __restrict__ bg,
-                 int tiles_x, int width, int height,
+                 int tiles_x, int tile_y0, int width, int height,
                  const float* __restrict__ t_final,
                  const int* __restrict__ last_contrib,
                  const float* __restrict__ g_image,
@@ -85,14 +85,18 @@ blend_bwd_kernel(const float* __restrict__ records, int record_stride,
   const int strip =
       static_cast<int>(blockIdx.x) % kBlocksPerTile * kWarps + warp;
   const int tx0 = (tile % tiles_x) * kTile;
+  // the strip's first row in the output buffer, which holds the tile rows
+  // [tile_y0, tile_y0 + tiles_y) of the image: `py` indexes and masks the
+  // buffer, the image row `gy0 + lane / 16` places the pixel centre
   const int ty0 = (tile / tiles_x) * kTile + 2 * strip;
+  const int gy0 = ty0 + tile_y0 * kTile;
   const int px = tx0 + (lane & 15);
   const int py = ty0 + (lane >> 4);
   const bool inside = px < width && py < height;
   const float fx = static_cast<float>(px);
-  const float fy = static_cast<float>(py);
+  const float fy = static_cast<float>(gy0 + (lane >> 4));
   const float x0 = static_cast<float>(tx0);
-  const float y0 = static_cast<float>(ty0);
+  const float y0 = static_cast<float>(gy0);
   const int s0 = starts[tile];
   Record* rec = s_rec[warp];
 
@@ -226,13 +230,17 @@ blend_bwd_kernel(const float* __restrict__ records, int record_stride,
 }  // namespace
 
 // Accumulates into `grad` (zeroed by the caller) on `stream` and returns
-// cudaGetLastError() (0 on success). `gid` (M,) is order[rank_sorted].
+// cudaGetLastError() (0 on success). `gid` (M,) is order[rank_sorted]. The
+// buffers (height x width) hold the tile rows [tile_y0, tile_y0 + tiles_y)
+// of the image: tile_y0 = 0 for a whole frame, a strip's first tile row
+// for a tile-row-sharded render (d3gs_tpu_torch/parallel/sharded.py).
 extern "C" int d3gs_blend_bwd(const float* records, int record_stride,
                               const int* gid, const int* starts,
                               const float* bg, int tiles_x, int tiles_y,
-                              int width, int height, const float* t_final,
-                              const int* last_contrib, const float* g_image,
-                              const float* g_depth, const float* g_alpha,
+                              int width, int height, int tile_y0,
+                              const float* t_final, const int* last_contrib,
+                              const float* g_image, const float* g_depth,
+                              const float* g_alpha,
                               int depth_grad, float* grad, int grad_stride,
                               void* stream) {
   const int num_tiles = tiles_x * tiles_y;
@@ -241,13 +249,13 @@ extern "C" int d3gs_blend_bwd(const float* records, int record_stride,
     const int blocks = num_tiles * kBlocksPerTile;
     if (depth_grad) {
       blend_bwd_kernel<true><<<blocks, kWarps * 32, 0, s>>>(
-          records, record_stride, gid, starts, bg, tiles_x, width, height,
-          t_final, last_contrib, g_image, g_depth, g_alpha, grad,
+          records, record_stride, gid, starts, bg, tiles_x, tile_y0, width,
+          height, t_final, last_contrib, g_image, g_depth, g_alpha, grad,
           grad_stride);
     } else {
       blend_bwd_kernel<false><<<blocks, kWarps * 32, 0, s>>>(
-          records, record_stride, gid, starts, bg, tiles_x, width, height,
-          t_final, last_contrib, g_image, g_depth, g_alpha, grad,
+          records, record_stride, gid, starts, bg, tiles_x, tile_y0, width,
+          height, t_final, last_contrib, g_image, g_depth, g_alpha, grad,
           grad_stride);
     }
   }

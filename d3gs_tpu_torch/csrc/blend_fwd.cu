@@ -57,7 +57,7 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
                  const int* __restrict__ gid,
                  const int* __restrict__ starts,
                  const float* __restrict__ bg,
-                 int tiles_x, int width, int height,
+                 int tiles_x, int tile_y0, int width, int height,
                  float* __restrict__ image, float* __restrict__ depth,
                  float* __restrict__ alpha_out, float* __restrict__ t_final,
                  float* __restrict__ log_t_final,
@@ -70,14 +70,18 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
   const int strip =
       static_cast<int>(blockIdx.x) % kBlocksPerTile * kWarps + warp;
   const int tx0 = (tile % tiles_x) * kTile;
+  // the strip's first row in the output buffer, which holds the tile rows
+  // [tile_y0, tile_y0 + tiles_y) of the image: `py` indexes and masks the
+  // buffer, the image row `gy0 + lane / 16` places the pixel centre
   const int ty0 = (tile / tiles_x) * kTile + 2 * strip;
+  const int gy0 = ty0 + tile_y0 * kTile;
   const int px = tx0 + (lane & 15);
   const int py = ty0 + (lane >> 4);
   const bool inside = px < width && py < height;
   const float fx = static_cast<float>(px);
-  const float fy = static_cast<float>(py);
+  const float fy = static_cast<float>(gy0 + (lane >> 4));
   const float x0 = static_cast<float>(tx0);
-  const float y0 = static_cast<float>(ty0);
+  const float y0 = static_cast<float>(gy0);
   const int s0 = starts[tile];
   const int s1 = starts[tile + 1];
   Record* rec = s_rec[warp];
@@ -181,19 +185,24 @@ blend_fwd_kernel(const float* __restrict__ records, int record_stride,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `gid` (M,) is order[rank_sorted]: the Gaussian of each sorted duplicate.
+// The outputs (height x width) hold the tile rows [tile_y0, tile_y0 +
+// tiles_y) of the image: tile_y0 = 0 for a whole frame, a strip's first
+// tile row for a tile-row-sharded render (d3gs_tpu_torch/parallel/).
 extern "C" int d3gs_blend_fwd(const float* records, int record_stride,
                               const int* gid, const int* starts,
                               const float* bg, int tiles_x, int tiles_y,
-                              int width, int height, float* image,
-                              float* depth, float* alpha, float* t_final,
-                              float* log_t_final, int* n_walked,
-                              int* last_contrib, void* stream) {
+                              int width, int height, int tile_y0,
+                              float* image, float* depth, float* alpha,
+                              float* t_final, float* log_t_final,
+                              int* n_walked, int* last_contrib,
+                              void* stream) {
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles > 0) {
     blend_fwd_kernel<<<num_tiles * kBlocksPerTile, kWarps * 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        records, record_stride, gid, starts, bg, tiles_x, width, height,
-        image, depth, alpha, t_final, log_t_final, n_walked, last_contrib);
+        records, record_stride, gid, starts, bg, tiles_x, tile_y0, width,
+        height, image, depth, alpha, t_final, log_t_final, n_walked,
+        last_contrib);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,14 +23,14 @@ import torch
 from ..data.cameras import Camera
 from ..ops.binning import bin_splats_records
 from ..ops.blend import blend_records
-from ..ops.projection import TILE, project_gaussians
+from ..ops.projection import TILE, ProjectedSplats, project_gaussians
 from ..ops.rasterize import RenderOutput, pack_records
 from ..ops.sh import eval_sh_upto
 from ..ops.transforms import apply_se3
 from .gaussians import GaussianState
 
 
-def render(
+def project_splats(
     gaussians: GaussianState,
     camera: Camera,
     *,
@@ -41,12 +41,13 @@ def render(
     direct_compute: bool = False,
     scaling_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
-    bg: torch.Tensor | None = None,
     antialias: bool = False,
-    dup_capacity: int = 0,
     means2d_tap: Optional[torch.Tensor] = None,
-    depth_grad: bool = True,
-) -> RenderOutput:
+) -> ProjectedSplats:
+    """`render` up to the projection: the deformation composed with the
+    Gaussians, SH to RGB, and the EWA projection of every row of
+    `gaussians` (all of them, or one rank's rows in the gauss+tile layout
+    of `parallel/sharded.py`), the tap added to the projected centres."""
     p = gaussians.params
     is_field = isinstance(d_xyz, torch.Tensor)
     if direct_compute:
@@ -72,20 +73,43 @@ def render(
                               gaussians.get_features, dirs)
         colors = (colors + 0.5).clamp_min(0.0)
 
-    if bg is None:
-        bg = means3d.new_zeros(3)
-
-    width, height = camera.width, camera.height
-    tiles_x = (width + TILE - 1) // TILE
-    tiles_y = (height + TILE - 1) // TILE
-
     splats = project_gaussians(
         means3d, scales, rotations, opacity, colors,
         camera.viewmatrix, camera.projmatrix, camera.tanfovx,
-        camera.tanfovy, width, height, antialias=antialias,
+        camera.tanfovy, camera.width, camera.height, antialias=antialias,
         alive=gaussians.alive)
     if means2d_tap is not None:
         splats = splats._replace(means2d=splats.means2d + means2d_tap)
+    return splats
+
+
+def render(
+    gaussians: GaussianState,
+    camera: Camera,
+    *,
+    d_xyz: torch.Tensor | float = 0.0,
+    d_rotation: torch.Tensor | float = 0.0,
+    d_scaling: torch.Tensor | float = 0.0,
+    is_6dof: bool = False,
+    direct_compute: bool = False,
+    scaling_modifier: float = 1.0,
+    override_color: Optional[torch.Tensor] = None,
+    bg: torch.Tensor | None = None,
+    antialias: bool = False,
+    dup_capacity: int = 0,
+    means2d_tap: Optional[torch.Tensor] = None,
+    depth_grad: bool = True,
+) -> RenderOutput:
+    splats = project_splats(
+        gaussians, camera, d_xyz=d_xyz, d_rotation=d_rotation,
+        d_scaling=d_scaling, is_6dof=is_6dof, direct_compute=direct_compute,
+        scaling_modifier=scaling_modifier, override_color=override_color,
+        antialias=antialias, means2d_tap=means2d_tap)
+    if bg is None:
+        bg = splats.means2d.new_zeros(3)
+    width, height = camera.width, camera.height
+    tiles_x = (width + TILE - 1) // TILE
+    tiles_y = (height + TILE - 1) // TILE
     with torch.no_grad():
         bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y,
                                   dup_capacity=dup_capacity)

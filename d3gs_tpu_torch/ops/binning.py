@@ -13,7 +13,10 @@ expand-and-radix-sort of (tile, depth) keys (SURVEY.md §2.3).
   5. per-tile segment starts by `searchsorted`.
 
 The outputs are int32 and equal the JAX package's, field for field, on the
-first `starts[-1]` entries of `rank_sorted`.
+first `starts[-1]` entries of `rank_sorted`. With `tile_y0` the binning
+covers the tile rows [tile_y0, tile_y0 + tiles_y) only, the strip one rank
+blends in the tile-row-sharded render (`parallel/sharded.py`): overlaps are
+clipped to the strip and tile keys count from its first row.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ class RecordBins(NamedTuple):
 
 
 def bin_splats_records(splats: ProjectedSplats, *, tiles_x: int,
-                       tiles_y: int, dup_capacity: int = 0) -> RecordBins:
-    """Sort-based binning of every (tile, Gaussian) overlap.
+                       tiles_y: int, dup_capacity: int = 0,
+                       tile_y0: int = 0) -> RecordBins:
+    """Sort-based binning of every (tile, Gaussian) overlap inside the
+    tile rows [tile_y0, tile_y0 + tiles_y).
 
     `dup_capacity` is the duplicate budget (0 = 16·N, rounded up to 512 as
     in the JAX package); M = min(total duplicates, budget)."""
@@ -50,8 +55,8 @@ def bin_splats_records(splats: ProjectedSplats, *, tiles_x: int,
 
     tmin = splats.tile_min.long()
     tmax = splats.tile_max.long()
-    ty_lo = tmin[:, 1].clamp_min(0)
-    ty_hi = tmax[:, 1].clamp_max(tiles_y)
+    ty_lo = tmin[:, 1].clamp_min(tile_y0)
+    ty_hi = tmax[:, 1].clamp_max(tile_y0 + tiles_y)
     bw = tmax[:, 0] - tmin[:, 0]
     bh = (ty_hi - ty_lo).clamp_min(0)
     cnt_u = torch.where(splats.visible, bw * bh, torch.zeros_like(bw))
@@ -71,7 +76,7 @@ def bin_splats_records(splats: ProjectedSplats, *, tiles_x: int,
     j = torch.arange(kept, device=dev) - offsets[src]
     w = bw[order].clamp_min(1)[src]
     tx = tmin[order, 0][src] + j % w
-    ty = ty_lo[order][src] + j // w
+    ty = ty_lo[order][src] + j // w - tile_y0
     key = ((ty * tiles_x + tx) << shift) | src
     key_sorted = torch.sort(key).values
     rank_sorted = key_sorted & ((1 << shift) - 1)

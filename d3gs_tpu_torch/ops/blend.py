@@ -32,6 +32,13 @@ for CPU tensors. It never falls back from one to the other. Both kernels
 read each duplicate's Gaussian from `sorted_gids` (order[rank_sorted]),
 which `BlendFunction` computes once for the pair, and skip, per 16x2
 pixel strip, the records that `warp_rows_hit` rules out.
+
+`tile_y0` (the JAX package's argument of the same name) blends a strip of
+tile rows [tile_y0, tile_y0 + tiles_y) of a taller image, binned with the
+same offset (`bin_splats_records(..., tile_y0=...)`): the records keep
+image coordinates, the pixel centres are placed at the image rows, and the
+outputs, `height` = the strip's rows, start at the strip's first row. The
+tile-row-sharded render (`parallel/sharded.py`) blends one strip per rank.
 """
 from __future__ import annotations
 
@@ -108,13 +115,13 @@ class BlendOutput(NamedTuple):
 
 def blend_records(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
                   *, tiles_x: int, tiles_y: int, width: int, height: int,
-                  depth_grad: bool = True):
+                  depth_grad: bool = True, tile_y0: int = 0):
     """-> (image (H,W,3), depth (H,W), alpha (H,W)), differentiable in
     `records` and `bg`. With depth_grad=False the backward treats the
     depth cotangent as zero and skips its math (the photometric trainers'
     setting, as in the JAX package)."""
     return BlendFunction.apply(records, bg, bins, tiles_x, tiles_y, width,
-                               height, depth_grad)
+                               height, depth_grad, tile_y0)
 
 
 class BlendFunction(torch.autograd.Function):
@@ -124,9 +131,9 @@ class BlendFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, records, bg, bins, tiles_x, tiles_y, width, height,
-                depth_grad):
+                depth_grad, tile_y0):
         grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width,
-                    height=height)
+                    height=height, tile_y0=tile_y0)
         # one gather of the duplicates' Gaussian ids serves both kernels
         gid = sorted_gids(bins) if records.is_cuda else None
         out = blend_forward(records, bins, bg, gid=gid, **grid)
@@ -148,22 +155,22 @@ class BlendFunction(torch.autograd.Function):
             g_depth.contiguous(), g_alpha.contiguous(),
             depth_grad=ctx.depth_grad, gid=ctx.gid, **ctx.grid)
         g_bg = (g_image * t_final[..., None]).sum(dim=(0, 1))
-        return g_rec, g_bg, None, None, None, None, None, None
+        return g_rec, g_bg, None, None, None, None, None, None, None
 
 
 def blend_forward(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
                   *, tiles_x: int, tiles_y: int, width: int, height: int,
+                  tile_y0: int = 0,
                   gid: torch.Tensor | None = None) -> BlendOutput:
     """The full forward: the CUDA kernel on CUDA tensors, the plain version
     on CPU tensors. `gid`: `sorted_gids(bins)` if the caller has it (the
     kernel's input; the plain version gathers its own)."""
+    grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width, height=height,
+                tile_y0=tile_y0)
     if records.is_cuda:
-        return blend_forward_cuda(records, bins, bg, tiles_x=tiles_x,
-                                  tiles_y=tiles_y, width=width, height=height,
-                                  gid=gid)
+        return blend_forward_cuda(records, bins, bg, **grid, gid=gid)
     if records.device.type == "cpu":
-        return blend_forward_torch(records, bins, bg, tiles_x=tiles_x,
-                                   tiles_y=tiles_y, width=width, height=height)
+        return blend_forward_torch(records, bins, bg, **grid)
     raise ValueError(f"blend: unsupported device {records.device}")
 
 
@@ -177,7 +184,7 @@ def _assemble(x: torch.Tensor, tiles_x: int, tiles_y: int, width: int,
 
 def blend_forward_torch(records: torch.Tensor, bins: RecordBins,
                         bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
-                        width: int, height: int,
+                        width: int, height: int, tile_y0: int = 0,
                         tile_chunk: int = 16) -> BlendOutput:
     """Plain PyTorch version: chunks of tiles, each padded to its longest
     list, with the whole depth recurrence as one cumsum over the list."""
@@ -206,7 +213,7 @@ def blend_forward_torch(records: torch.Tensor, bins: RecordBins,
         idx = torch.where(live, starts[tiles][:, None] + k[None, :], 0)
         r = rec[gid[idx]]                                      # (Tc, K, 10)
         ox = ((tiles % tiles_x) * TILE).float()[:, None, None]
-        oy = ((tiles // tiles_x) * TILE).float()[:, None, None]
+        oy = ((tiles // tiles_x + tile_y0) * TILE).float()[:, None, None]
         dx = r[..., 0:1] - (ox + lx)                           # (Tc, K, P)
         dy = r[..., 1:2] - (oy + ly)
         ca, cb, cc = r[..., 2:3], r[..., 3:4], r[..., 4:5]
@@ -253,13 +260,13 @@ def blend_backward(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
                    fwd: BlendOutput, g_image: torch.Tensor,
                    g_depth: torch.Tensor, g_alpha: torch.Tensor, *,
                    tiles_x: int, tiles_y: int, width: int, height: int,
-                   depth_grad: bool = True,
+                   depth_grad: bool = True, tile_y0: int = 0,
                    gid: torch.Tensor | None = None) -> torch.Tensor:
     """Gradient of the (N, 16) records: the CUDA kernel on CUDA tensors,
     the plain version on CPU tensors (`gid` as in `blend_forward`)."""
     args = (records, bins, bg, fwd, g_image, g_depth, g_alpha)
     grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=width,
-                height=height, depth_grad=depth_grad)
+                height=height, depth_grad=depth_grad, tile_y0=tile_y0)
     if records.is_cuda:
         return blend_backward_cuda(*args, **grid, gid=gid)
     if records.device.type == "cpu":
@@ -272,7 +279,7 @@ def blend_backward_torch(records: torch.Tensor, bins: RecordBins,
                          g_image: torch.Tensor, g_depth: torch.Tensor,
                          g_alpha: torch.Tensor, *, tiles_x: int,
                          tiles_y: int, width: int, height: int,
-                         depth_grad: bool = True,
+                         depth_grad: bool = True, tile_y0: int = 0,
                          tile_chunk: int = 16) -> torch.Tensor:
     """Plain PyTorch version of the backward: chunks of tiles padded to
     their longest list; the included set is every record before the
@@ -309,7 +316,7 @@ def blend_backward_torch(records: torch.Tensor, bins: RecordBins,
         g_ids = gid[idx]
         r = rec[g_ids]                                         # (Tc, K, 10)
         ox = ((tiles % tiles_x) * TILE).float()[:, None, None]
-        oy = ((tiles // tiles_x) * TILE).float()[:, None, None]
+        oy = ((tiles // tiles_x + tile_y0) * TILE).float()[:, None, None]
         dx = r[..., 0:1] - (ox + lx)                           # (Tc, K, P)
         dy = r[..., 1:2] - (oy + ly)
         ca, cb, cc = r[..., 2:3], r[..., 3:4], r[..., 4:5]
@@ -349,12 +356,14 @@ def blend_backward_torch(records: torch.Tensor, bins: RecordBins,
 
 _FWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
                  + [ctypes.c_void_p] * 3              # gid, starts, bg
-                 + [ctypes.c_int] * 4                 # tiles_x/y, width, height
+                 + [ctypes.c_int] * 5                 # tiles_x/y, width, height,
+                 #                                      tile_y0
                  + [ctypes.c_void_p] * 7              # outputs
                  + [ctypes.c_void_p])                 # stream
 _BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int]      # records, row stride
                  + [ctypes.c_void_p] * 3              # gid, starts, bg
-                 + [ctypes.c_int] * 4                 # tiles_x/y, width, height
+                 + [ctypes.c_int] * 5                 # tiles_x/y, width, height,
+                 #                                      tile_y0
                  + [ctypes.c_void_p] * 2              # t_final, last
                  + [ctypes.c_void_p] * 3              # g_image, g_depth, g_alpha
                  + [ctypes.c_int]                     # depth_grad
@@ -371,12 +380,15 @@ def _check(name, t, dtype, shape, device):
                          f"expected {shape}")
 
 
-def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height, gid):
+def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height, gid,
+                  tile_y0=0):
     """Checks the kernels' inputs; returns `gid`, gathered if None."""
     dev = records.device
     n = records.shape[0]
     if not (0 < width <= tiles_x * TILE and 0 < height <= tiles_y * TILE):
         raise ValueError("blend: image size does not match the tile grid")
+    if tile_y0 < 0:
+        raise ValueError(f"blend: tile_y0 = {tile_y0} < 0")
     # (n, 16) contiguous from a 16-byte boundary: every row is then aligned
     # for the kernels' 16-byte loads (a misaligned one faults the context)
     _check("records", records, torch.float32, (n, RECORD_WIDTH), dev)
@@ -396,14 +408,14 @@ def _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height, gid):
 
 def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
                        bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
-                       width: int, height: int,
+                       width: int, height: int, tile_y0: int = 0,
                        gid: torch.Tensor | None = None) -> BlendOutput:
     """Launch `csrc/blend_fwd.cu` on the current stream; raises if the
     kernel cannot be built or launched. `gid`: `sorted_gids(bins)`,
     gathered here if None."""
     global launches
     gid = _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height,
-                        gid)
+                        gid, tile_y0)
     dev = records.device
     image = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     depth, alpha, t_final, log_t = (
@@ -415,13 +427,13 @@ def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
                       t_final=t_final, log_t=log_t, n_walked=walked,
                       last_contrib=last)
     launch(records, gid, bins.starts, bg, out, tiles_x=tiles_x,
-           tiles_y=tiles_y)
+           tiles_y=tiles_y, tile_y0=tile_y0)
     launches += 1
     return out
 
 
 def launch(records, gid, starts, bg, out: BlendOutput, *, tiles_x: int,
-           tiles_y: int) -> None:
+           tiles_y: int, tile_y0: int = 0) -> None:
     """One launch of the forward kernel into preallocated outputs, without
     the checks of `blend_forward_cuda` (which calls it) and uncounted."""
     height, width = out.depth.shape
@@ -430,7 +442,7 @@ def launch(records, gid, starts, bg, out: BlendOutput, *, tiles_x: int,
         err = _build.entry("blend_fwd", _FWD_ARGTYPES)(
             records.data_ptr(), records.stride(0), gid.data_ptr(),
             starts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, width,
-            height, out.image.data_ptr(), out.depth.data_ptr(),
+            height, tile_y0, out.image.data_ptr(), out.depth.data_ptr(),
             out.alpha.data_ptr(), out.t_final.data_ptr(),
             out.log_t.data_ptr(), out.n_walked.data_ptr(),
             out.last_contrib.data_ptr(),
@@ -444,6 +456,7 @@ def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
                         g_image: torch.Tensor, g_depth: torch.Tensor,
                         g_alpha: torch.Tensor, *, tiles_x: int, tiles_y: int,
                         width: int, height: int, depth_grad: bool = True,
+                        tile_y0: int = 0,
                         gid: torch.Tensor | None = None) -> torch.Tensor:
     """Launch `csrc/blend_bwd.cu` on the current stream into a zeroed
     (N, 16) gradient; raises if the kernel cannot be built or launched.
@@ -451,7 +464,7 @@ def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
     `blend_forward_cuda`."""
     global launches_bwd
     gid = _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height,
-                        gid)
+                        gid, tile_y0)
     dev = records.device
     for name, t in (("t_final", fwd.t_final), ("g_depth", g_depth),
                     ("g_alpha", g_alpha)):
@@ -462,14 +475,15 @@ def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
     grad = torch.zeros((records.shape[0], RECORD_WIDTH), dtype=torch.float32,
                        device=dev)
     launch_bwd(records, gid, bins.starts, bg, fwd, g_image, g_depth, g_alpha,
-               grad, tiles_x=tiles_x, tiles_y=tiles_y, depth_grad=depth_grad)
+               grad, tiles_x=tiles_x, tiles_y=tiles_y, depth_grad=depth_grad,
+               tile_y0=tile_y0)
     launches_bwd += 1
     return grad
 
 
 def launch_bwd(records, gid, starts, bg, fwd: BlendOutput, g_image, g_depth,
                g_alpha, grad, *, tiles_x: int, tiles_y: int,
-               depth_grad: bool) -> None:
+               depth_grad: bool, tile_y0: int = 0) -> None:
     """One launch of the backward kernel, accumulating into `grad` (which
     the caller zeroes), without the checks of `blend_backward_cuda` (which
     calls it) and uncounted."""
@@ -479,7 +493,7 @@ def launch_bwd(records, gid, starts, bg, fwd: BlendOutput, g_image, g_depth,
         err = _build.entry("blend_bwd", _BWD_ARGTYPES)(
             records.data_ptr(), records.stride(0), gid.data_ptr(),
             starts.data_ptr(), bg.data_ptr(), tiles_x, tiles_y, width,
-            height, fwd.t_final.data_ptr(), fwd.last_contrib.data_ptr(),
+            height, tile_y0, fwd.t_final.data_ptr(), fwd.last_contrib.data_ptr(),
             g_image.data_ptr(), g_depth.data_ptr(), g_alpha.data_ptr(),
             int(depth_grad), grad.data_ptr(), grad.stride(0),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -29,6 +29,37 @@ def pack_records(splats: ProjectedSplats) -> torch.Tensor:
     ], dim=-1).contiguous()
 
 
+def pack_records_full(splats: ProjectedSplats) -> torch.Tensor:
+    """`pack_records` with the binning fields in the pad lanes: 10-11
+    tile_min (x, y), 12-13 tile_max (x, y), 14 visible, 15 the cull radius
+    (the tile bounds are small integers, exact in f32). One (N, 16) row
+    carries all a remote rank needs to bin and blend a Gaussian, so the
+    gauss+tile step all-gathers one tensor per camera
+    (`parallel/sharded.py`); the kernels read lanes 0-9 only, so the
+    gathered tensor feeds them as it is."""
+    return torch.cat([
+        pack_records(splats)[:, :RECORD_FIELDS],
+        splats.tile_min.float(),
+        splats.tile_max.float(),
+        splats.visible.float()[:, None],
+        splats.cull_radius[:, None],
+    ], dim=-1).contiguous()
+
+
+def unpack_records_full(rec: torch.Tensor) -> ProjectedSplats:
+    """Inverse of `pack_records_full`. The radii are not carried (the
+    densification statistic reads them on the rank that owns the
+    Gaussian), so they come back zero."""
+    n = rec.shape[0]
+    return ProjectedSplats(
+        means2d=rec[:, 0:2], depths=rec[:, 9], conics=rec[:, 2:5],
+        radii=torch.zeros((n,), dtype=torch.int32, device=rec.device),
+        colors=rec[:, 5:8], opacities=rec[:, 8],
+        tile_min=rec[:, 10:12].to(torch.int32),
+        tile_max=rec[:, 12:14].to(torch.int32),
+        visible=rec[:, 14] > 0.5, cull_radius=rec[:, 15])
+
+
 class RenderOutput(NamedTuple):
     image: torch.Tensor    # (H, W, 3)
     depth: torch.Tensor    # (H, W) expected depth (unnormalized)

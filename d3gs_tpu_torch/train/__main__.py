@@ -12,15 +12,31 @@ card (`cuda`) unless `--device cpu` asks for the CPU. `--trainer flagship`
 runs the k-camera / neural-ODE trainer (`--is_ode`, `--use_torch_ode` pick
 the ODE fields). The checkpoints (`point_cloud/iteration_N/point_cloud.ply`,
 `deform/iteration_N/deform.npz`) load in either package's renderer.
-`--mesh_shape` (multi-GPU) raises.
+
+Multi-GPU (the flagship trainer), one process per rank under torchrun:
+
+    torchrun --standalone --nproc_per_node D -m d3gs_tpu_torch.train \
+        --trainer flagship ... --mesh_shape D [--mesh_mode camera]
+    torchrun --standalone --nproc_per_node C*S -m d3gs_tpu_torch.train \
+        --trainer flagship ... --mesh_shape CxS --mesh_mode gauss_tile
+
+The mesh's size must equal torchrun's WORLD_SIZE, or the CLI raises. Rank r
+runs on cuda:LOCAL_RANK over NCCL (it raises if that card does not exist);
+with `--device cpu` the ranks run on the CPU over gloo. A `CxS` shape is a
+(camera groups x shards) mesh in the gauss_tile layout and a 1D mesh of
+C*S ranks in the camera layout, as in JAX. The baseline trainer runs on
+one device: at `--mesh_shape 1` it prints JAX's note and runs, at a larger
+world size it raises. Rank 0 alone writes the model directory.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import uuid
 
 import torch
+import torch.distributed as dist
 
 from .. import config as C
 from .. import resolve_device
@@ -60,16 +76,73 @@ def main(argv=None):
         C.apply_config_file(args.configs, {"model": model_cfg,
                                            "pipeline": pipe_cfg,
                                            "optimization": opt_cfg})
+    mesh = None
     if pipe_cfg.mesh_shape:
-        raise NotImplementedError("--mesh_shape is not ported yet (ROADMAP.md,"
-                                  " Queue 1: slice 8, multi-GPU)")
+        parts = mesh_parts(pipe_cfg.mesh_shape)
+        if args.trainer == "baseline":
+            if math.prod(parts) > 1:
+                raise ValueError("--mesh_shape applies to --trainer flagship;"
+                                 " the baseline trainer runs on one device")
+            print("note: --mesh_shape applies to the flagship trainer; "
+                  "baseline runs single-device")
+        else:
+            mesh = init_mesh(parts, pipe_cfg.mesh_mode, device)
+            device = mesh.device
+    try:
+        return _train(args, model_cfg, pipe_cfg, opt_cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
+
+def mesh_parts(shape: str) -> list[int]:
+    """`--mesh_shape` ("D" or "CxS") as ints; raises unless the product
+    equals torchrun's WORLD_SIZE."""
+    parts = [int(p) for p in shape.lower().split("x")]
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or int(world) != math.prod(parts):
+        raise ValueError(
+            f"--mesh_shape {shape} needs {math.prod(parts)} ranks, but "
+            f"WORLD_SIZE is {world}: launch with torchrun --nproc_per_node "
+            f"{math.prod(parts)} -m d3gs_tpu_torch.train ...")
+    return parts
+
+
+def init_mesh(parts: list[int], mode: str, device: torch.device):
+    """Join the default process group from torchrun's environment (NCCL on
+    cuda:LOCAL_RANK, gloo on the CPU) and build the mesh: (C x S) for a
+    2D shape in the gauss_tile layout, else 1D over every rank."""
+    from ..parallel import mesh as M
+    if device.type == "cuda":
+        local = int(os.environ["LOCAL_RANK"])
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank on cuda:{local}, but "
+                               f"{torch.cuda.device_count()} card(s) are "
+                               f"visible")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    dist.init_process_group(M.backend_for(device), init_method="env://")
+    if len(parts) == 2 and mode == "gauss_tile":
+        mesh = M.make_mesh_2d(parts[0], parts[1], device)
+    else:
+        mesh = M.make_mesh(device)
+    if mesh.rank == 0:
+        print(f"mesh: {'x'.join(map(str, parts))} ({mode}), backend "
+              f"{dist.get_backend()}, world size {mesh.size}, rank 0 on "
+              f"{device}", flush=True)
+    return mesh
+
+
+def _train(args, model_cfg, pipe_cfg, opt_cfg, device, mesh):
+    lead = mesh is None or mesh.rank == 0
     if not model_cfg.model_path:
         model_cfg.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
     os.makedirs(model_cfg.model_path, exist_ok=True)
-    C.save_cfg_args(model_cfg.model_path, model_cfg)
-    print(f"Output folder: {model_cfg.model_path}")
-    tb_writer = make_tb_writer(model_cfg.model_path)
+    tb_writer = None
+    if lead:
+        C.save_cfg_args(model_cfg.model_path, model_cfg)
+        print(f"Output folder: {model_cfg.model_path}")
+        tb_writer = make_tb_writer(model_cfg.model_path)
 
     from ..data.scene import Scene, load_gaussians_ply, \
         search_for_max_iteration
@@ -102,11 +175,17 @@ def main(argv=None):
         result = train_baseline(**common)
     else:
         from .flagship import train_flagship
-        result = train_flagship(base_model_frozen=frozen, **common)
+        result = train_flagship(base_model_frozen=frozen, mesh=mesh,
+                                **common)
     if tb_writer is not None:
         tb_writer.close()
-    print(f"Best PSNR = {result.best_psnr:.2f} "
-          f"in Iteration {result.best_iteration}")
+    if mesh is not None and device.type == "cuda":
+        from ..ops import blend as B
+        print(f"rank {mesh.rank}: blend kernel launches: forward "
+              f"{B.launches}, backward {B.launches_bwd}", flush=True)
+    if lead:
+        print(f"Best PSNR = {result.best_psnr:.2f} "
+              f"in Iteration {result.best_iteration}")
     return result
 
 

@@ -258,6 +258,16 @@ def save_checkpoint(model_path: str, iteration: int, state: G.GaussianState,
     save_deform_weights(model_path, iteration, field)
 
 
+def densify_due(iteration: int, opt_cfg, model_cfg) -> bool:
+    """Whether `densify_cadence` changes the state at `iteration` (a
+    densify pass or an opacity reset)."""
+    return ((iteration > opt_cfg.densify_from_iter
+             and iteration % opt_cfg.densification_interval == 0)
+            or iteration % opt_cfg.opacity_reset_interval == 0
+            or (model_cfg.white_background
+                and iteration == opt_cfg.densify_from_iter))
+
+
 def densify_cadence(state: G.GaussianState, iteration: int, *, opt_cfg,
                     model_cfg, gen: torch.Generator, cameras_extent: float,
                     events: list) -> G.GaussianState:

@@ -19,10 +19,18 @@ per-camera (1−λ)·L1 + λ·(1−SSIM):
     (`IterativeSchedule`), Gaussian freezing from `base_model_path`, and the
     baseline trainer's densify cadence (skipped when the base is frozen).
 
-Not ported: the JAX trainer's `mesh` (multi-GPU, ROADMAP.md slice 8) raises;
-`steps_per_dispatch` (several jitted steps per dispatch) has no counterpart
-in an eager loop, and `max_batch_gaussians` is accepted and ignored, as in
-JAX.
+With a `parallel.mesh.Mesh` (`mesh=`, one process per rank) the step is
+the sharded one of `pipe_cfg.mesh_mode` (parallel/sharded.py): `camera`
+replicates the state and splits the camera batch, padded to a multiple of
+the ranks with repeated cameras weighted 1/copies; `gauss_tile` shards the
+state's rows (and on a 2D mesh splits the batch over the camera groups).
+Densify and prune run on the whole state on every rank, gathered first
+and re-sharded after, with the same generator everywhere, so the pass
+equals the single-device one. Rank 0 alone evaluates, saves and logs.
+
+Not ported: `steps_per_dispatch` (several jitted steps per dispatch) has
+no counterpart in an eager loop, and `max_batch_gaussians` is accepted and
+ignored, as in JAX.
 """
 from __future__ import annotations
 
@@ -40,8 +48,8 @@ from ..models.deform.fields import (MLP_KINDS, ODE_KINDS, DeformFieldSpec,
                                     create_deform_field)
 from ..models.renderer import render
 from ..ops.losses import l1_loss, ssim
-from .baseline import (IterTimer, TrainResult, densify_cadence, evaluate,
-                       log_evaluation, log_scalars, save_checkpoint,
+from .baseline import (IterTimer, TrainResult, densify_cadence, densify_due,
+                       evaluate, log_evaluation, log_scalars, save_checkpoint,
                        subsample_stack)
 from .step import StepAux, make_eval_render
 
@@ -77,8 +85,10 @@ class BatchGrads(NamedTuple):
 
 def make_batched_loss_and_grads(*, opt_cfg, pipe_cfg, model_cfg, field,
                                 use_deform: bool):
-    """-> loss_and_grads(state, cams, bg, wts=None) -> BatchGrads: the
-    forward over the k cameras (sorted by fid) and the one backward."""
+    """-> loss_and_grads(state, cams, bg, wts=None, wsum=None) ->
+    BatchGrads: the forward over the k cameras (sorted by fid) and the one
+    backward of Σ wts·loss / wsum (wsum defaults to Σ wts; the
+    camera-parallel step passes the whole batch's)."""
     lam = opt_cfg.lambda_dssim
     kind = field.spec.kind
     direct = opt_cfg.direct_compute and kind in ODE_KINDS and use_deform
@@ -86,7 +96,7 @@ def make_batched_loss_and_grads(*, opt_cfg, pipe_cfg, model_cfg, field,
     deform_params = list(field.net.parameters()) if use_deform else []
 
     def loss_and_grads(state: G.GaussianState, cams: list[Camera], bg,
-                       wts=None) -> BatchGrads:
+                       wts=None, wsum=None) -> BatchGrads:
         w = [1.0] * len(cams) if wts is None else [float(x) for x in wts]
         params = G.GaussianParams(*(p.detach().requires_grad_()
                                     for p in state.params))
@@ -122,7 +132,8 @@ def make_batched_loss_and_grads(*, opt_cfg, pipe_cfg, model_cfg, field,
             else:
                 radii = torch.maximum(radii, out.radii)
                 overflow, dups = torch.maximum(overflow, top), dups + total
-        wsum = sum(w)
+        if wsum is None:
+            wsum = sum(w)
         loss = loss / wsum
         inputs = [*params, *deform_params, tap]
         grads = torch.autograd.grad(loss, inputs, allow_unused=True,
@@ -151,23 +162,35 @@ def make_batched_step(*, opt_cfg, pipe_cfg, model_cfg, field,
     def step(state: G.GaussianState, deform_state, cams: list[Camera],
              iteration, bg, wts=None):
         r = loss_and_grads(state, cams, bg, wts)
-        with torch.no_grad():
-            if update_gaussians and not opt_cfg.freeze_gaussians:
-                lrs = G.group_learning_rates(opt_cfg, iteration,
-                                             state.spatial_lr_scale)
-                params, opt = G.adam_step(state.params, r.params, state.opt,
-                                          lrs, mask=state.alive)
-                state = G.add_densification_stats(
-                    dataclasses.replace(state, params=params, opt=opt),
-                    r.tap, r.radii)
-            if update_deform and deform_state is not None:
-                deform_state = field.update(deform_state, r.deform,
-                                            iteration)
-        aux = StepAux(loss=r.loss, l1=r.l1, radii=r.radii,
-                      tile_overflow=r.tile_overflow, dup_total=r.dup_total)
-        return state, deform_state, aux
+        return apply_updates(state, deform_state, r, iteration,
+                             opt_cfg=opt_cfg, field=field,
+                             update_gaussians=update_gaussians,
+                             update_deform=update_deform)
 
     return step
+
+
+@torch.no_grad()
+def apply_updates(state: G.GaussianState, deform_state, r: BatchGrads,
+                  iteration, *, opt_cfg, field, update_gaussians: bool,
+                  update_deform: bool):
+    """The end of a flagship step from its gradients `r` (this rank's rows
+    and reduced gradients, for the sharded steps): the masked Gaussian Adam
+    with the densification statistics (unless Gaussians are frozen or not
+    updated) and the deform Adam. -> (state, deform_state, StepAux)."""
+    if update_gaussians and not opt_cfg.freeze_gaussians:
+        lrs = G.group_learning_rates(opt_cfg, iteration,
+                                     state.spatial_lr_scale)
+        params, opt = G.adam_step(state.params, r.params, state.opt, lrs,
+                                  mask=state.alive)
+        state = G.add_densification_stats(
+            dataclasses.replace(state, params=params, opt=opt), r.tap,
+            r.radii)
+    if update_deform and deform_state is not None:
+        deform_state = field.update(deform_state, r.deform, iteration)
+    aux = StepAux(loss=r.loss, l1=r.l1, radii=r.radii,
+                  tile_overflow=r.tile_overflow, dup_total=r.dup_total)
+    return state, deform_state, aux
 
 
 @dataclass
@@ -199,14 +222,18 @@ class IterativeSchedule:
 
 
 class BatchPicker:
-    """The JAX trainer's `pick_batch` on one device: k cameras popped at
-    `rng.randint` from the fid-sorted (optionally `spread_out_sequence`
-    subsampled) stack, refilled when fewer than k remain, returned sorted
-    by fid."""
+    """The JAX trainer's `pick_batch`: k cameras popped at `rng.randint`
+    from the fid-sorted (optionally `spread_out_sequence` subsampled)
+    stack, refilled when fewer than k remain, padded to a multiple of
+    `pad_to` (the ranks that split the batch) with cameras picked again at
+    `rng.randint`, returned sorted by fid. `weights(batch)` are 1/copies
+    of each camera, so the padded batch's weighted mean is the unpadded
+    mean."""
 
     def __init__(self, train_cams: list[Camera], *, k: int,
-                 sequence_length: int, spread_out: bool, seed: int):
-        self.train_cams, self.k = train_cams, k
+                 sequence_length: int, spread_out: bool, seed: int,
+                 pad_to: int = 1):
+        self.train_cams, self.k, self.pad_to = train_cams, k, pad_to
         self.sequence_length, self.spread_out = sequence_length, spread_out
         self.rng = Random(seed)
         self.stack: list[Camera] = []
@@ -220,8 +247,14 @@ class BatchPicker:
         n_pick = max(1, min(self.k, len(self.stack)))
         picked = [self.stack.pop(self.rng.randint(0, len(self.stack) - 1))
                   for _ in range(n_pick)]
+        while len(picked) % self.pad_to:
+            picked.append(picked[self.rng.randint(0, len(picked) - 1)])
         picked.sort(key=lambda c: float(c.fid))
         return picked
+
+    @staticmethod
+    def weights(batch: list[Camera]) -> list[float]:
+        return [1.0 / sum(c is d for d in batch) for c in batch]
 
 
 def train_flagship(
@@ -248,11 +281,9 @@ def train_flagship(
     """Train `gaussians` and the deform field of `pick_field_spec` (fresh
     from torch.Generator(seed) unless `field` and `deform_state` are
     given). `tb_writer` gets the JAX flagship trainer's tags (the
-    baseline's without l1); `mesh` is not ported and raises if set."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the flagship trainer's mesh (multi-GPU) is not ported yet "
-            "(ROADMAP.md, Queue 1: slice 8, multi-GPU)")
+    baseline's without l1). With `mesh` (a `parallel.mesh.Mesh`) every
+    rank calls this with the same arguments; the returned state is the
+    whole state on every rank."""
     dev = gaussians.alive.device
     gen = torch.Generator().manual_seed(seed)
     if field is None:
@@ -262,16 +293,34 @@ def train_flagship(
     bg = torch.full((3,), 1.0 if model_cfg.white_background else 0.0,
                     device=dev)
 
+    gauss_tile = mesh is not None and pipe_cfg.mesh_mode == "gauss_tile"
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        from ..parallel import mesh as M
+        from ..parallel import sharded as S
+        M.replicate(field.net)
     steps = {}
 
     def get_step(use_d, upd_g, upd_d):
         key = (use_d, upd_g, upd_d)
         if key not in steps:
-            steps[key] = make_batched_step(
-                opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, model_cfg=model_cfg,
-                field=field, update_gaussians=upd_g, update_deform=upd_d,
-                use_deform=use_d)
+            kw = dict(opt_cfg=opt_cfg, pipe_cfg=pipe_cfg,
+                      model_cfg=model_cfg, field=field,
+                      update_gaussians=upd_g, update_deform=upd_d,
+                      use_deform=use_d)
+            if gauss_tile:
+                steps[key] = S.make_flagship_gauss_tile_step(
+                    mesh, width=train_cams[0].width,
+                    height=train_cams[0].height, **kw)
+            elif mesh is not None:
+                steps[key] = S.make_flagship_camera_parallel_step(mesh, **kw)
+            else:
+                steps[key] = make_batched_step(**kw)
         return steps[key]
+
+    def whole(st):
+        """The whole state (every rank of the row takes part)."""
+        return M.gather_gaussian_state(st, mesh) if gauss_tile else st
 
     eval_render = make_eval_render(
         pipe_cfg=pipe_cfg, is_6dof=model_cfg.is_6dof,
@@ -282,13 +331,21 @@ def train_flagship(
         interval=float(opt_cfg.iterative_update_interval),
         decay=opt_cfg.iterative_update_decay,
         max_switches=opt_cfg.max_training_switches)
+    # camera-split batches pad to a multiple of the ranks that split them:
+    # all of them in the camera layout, the camera groups of a 2D
+    # gauss_tile mesh (a 1D one renders every camera on every rank)
+    pad_to = 1 if mesh is None else (mesh.cam if gauss_tile else mesh.size)
     pick_batch = BatchPicker(
         train_cams, k=opt_cfg.num_cams_per_iter,
         sequence_length=opt_cfg.sequence_length,
-        spread_out=opt_cfg.spread_out_sequence, seed=seed)
+        spread_out=opt_cfg.spread_out_sequence, seed=seed, pad_to=pad_to)
     densify_allowed = not base_model_frozen
 
     state = gaussians
+    if gauss_tile:
+        state = M.shard_gaussian_state(state, mesh)
+    elif mesh is not None:
+        M.replicate(list(state.params))
     result = TrainResult(state=state, field=field, deform_state=deform_state)
     ema_loss = 0.0
     t0 = time.perf_counter()
@@ -297,6 +354,7 @@ def train_flagship(
         if iteration % 1000 == 0:
             state = G.oneup_sh_degree(state)
         cams = pick_batch()
+        wts = BatchPicker.weights(cams) if pad_to > 1 else None
         warm = iteration < opt_cfg.warm_up
         if warm:
             upd_g, upd_d, use_d = True, False, False
@@ -304,29 +362,34 @@ def train_flagship(
             (upd_g, upd_d), use_d = schedule.mode(iteration), True
         step = get_step(use_d, upd_g, upd_d)
         state, new_dstate, aux = step(state, None if warm else deform_state,
-                                      cams, iteration, bg)
+                                      cams, iteration, bg, wts)
         if not warm:
             deform_state = new_dstate
 
-        if iteration % log_every == 0 or iteration == 1:
+        logged = iteration % log_every == 0 or iteration == 1
+        evaluated = iteration in test_iterations
+        saved = iteration in save_iterations and model_path
+        view = whole(state) if logged or evaluated or saved else None
+        if logged:
             loss_val = float(aux.loss)
             ema_loss = 0.4 * loss_val + 0.6 * ema_loss
             result.losses.append((iteration, loss_val))
-            if tb_writer is not None:
-                log_scalars(tb_writer, iteration, loss_val, state,
+            if tb_writer is not None and lead:
+                log_scalars(tb_writer, iteration, loss_val, view,
                             timer(iteration))
-            if progress:
+            if progress and lead:
                 print(f"[flagship {iteration}/{opt_cfg.iterations}] loss "
-                      f"{ema_loss:.4f} points {state.num_alive} "
-                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                      f"{ema_loss:.4f} (step {loss_val:.9g}) points "
+                      f"{view.num_alive} {time.perf_counter() - t0:.1f} s",
+                      flush=True)
 
-        if iteration in test_iterations:
+        if evaluated and lead:
             mean_psnr, eval_imgs = evaluate(
-                eval_render, state, iteration >= opt_cfg.warm_up,
+                eval_render, view, iteration >= opt_cfg.warm_up,
                 test_cams or train_cams[:5], bg)
             result.test_psnrs[iteration] = mean_psnr
             if tb_writer is not None:
-                log_evaluation(tb_writer, iteration, mean_psnr, state,
+                log_evaluation(tb_writer, iteration, mean_psnr, view,
                                eval_imgs, first=iteration == min(
                                    test_iterations))
             if progress:
@@ -336,15 +399,19 @@ def train_flagship(
                 result.best_psnr = mean_psnr
                 result.best_iteration = iteration
 
-        if iteration in save_iterations and model_path:
-            save_checkpoint(model_path, iteration, state, field)
+        if saved and lead:
+            save_checkpoint(model_path, iteration, view, field)
 
-        if densify_allowed and iteration < opt_cfg.densify_until_iter:
-            state = densify_cadence(state, iteration, opt_cfg=opt_cfg,
-                                    model_cfg=model_cfg, gen=gen,
-                                    cameras_extent=cameras_extent,
-                                    events=result.densify_events)
+        if (densify_allowed and iteration < opt_cfg.densify_until_iter
+                and densify_due(iteration, opt_cfg, model_cfg)):
+            # on the whole state, with the same generator on every rank
+            full = densify_cadence(whole(state), iteration, opt_cfg=opt_cfg,
+                                   model_cfg=model_cfg, gen=gen,
+                                   cameras_extent=cameras_extent,
+                                   events=result.densify_events)
+            state = M.shard_gaussian_state(full, mesh) if gauss_tile \
+                else full
 
-    result.state = state
+    result.state = whole(state)
     result.deform_state = deform_state
     return result

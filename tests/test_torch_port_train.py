@@ -251,12 +251,14 @@ def test_checkpoint_loads_in_both_packages(trained):
     assert out == {"iteration": 40, "views": 2}
 
 
-def test_cli_raises_on_unported_trainers(tmp_path):
-    """The flagship trainer and --base_model_path are ported (see
-    test_torch_port_flagship.py); the multi-GPU mesh still raises."""
+def test_cli_raises_on_unported_trainers(tmp_path, monkeypatch):
+    """The flagship trainer, --base_model_path and the multi-GPU mesh are
+    ported (test_torch_port_flagship.py, test_torch_port_parallel_cli.py);
+    a --mesh_shape that torchrun's WORLD_SIZE does not match raises."""
     from d3gs_tpu_torch.train.__main__ import main
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     for trainer in ("baseline", "flagship"):
-        with pytest.raises(NotImplementedError, match="slice 8"):
+        with pytest.raises(ValueError, match="WORLD_SIZE is None"):
             main(["-s", str(tmp_path), "-m", str(tmp_path / "m"),
                   "--device", "cpu", "--trainer", trainer,
                   "--mesh_shape", "2"])
