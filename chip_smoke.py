@@ -2816,6 +2816,186 @@ def mesh_path(dev, data_f, flagship_mp, first_loss, bench_state, field,
     return out
 
 
+# --------------------------------------------------------------------------
+# 4m: the JPEG decoder, a JPEG COLMAP set, PTv3 at full width
+# --------------------------------------------------------------------------
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "torch_port_jpeg")
+JPEG_REPS = 3                    # 4m-a: decodes of each fixture (best kept)
+COLMAP_ITERATIONS = 50           # 4m-b: baseline steps (losses logged at
+COLMAP_WARM_UP = 25              # 1 and 50), deform steps from 25
+PTV3_REPS = 3                    # 4m-c: calls in each timed reading
+PTV3_CHECK_POINTS = 8192         # 4m-c: card vs CPU on a subsample
+PTV3_CHECK_DEAD = 0.05           # with this share of dead rows
+PTV3_CHECK_TOL = 1e-4            # of the largest |output|
+
+
+def jpeg_fixtures() -> dict:
+    """Phase 4m-a: every JPEG of tests/torch_port_jpeg/ decoded on the
+    host by `data/jpeg.py` through `tools/exp_jpeg_decode`, bit-equal to
+    the committed PNG of Pillow's decode; the best of JPEG_REPS decodes
+    per fixture, in ms and ms per megapixel. Where Pillow imports on the
+    host, its version and whether its decode agrees are logged too (a
+    Pillow on another libjpeg may differ from the fixtures' own)."""
+    import glob
+    from d3gs_tpu_torch.tools.exp_jpeg_decode import decode_times
+    paths = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+    if not paths:
+        raise AssertionError(f"4m-a: no JPEG fixture in {JPEG_FIXTURES}")
+    out = decode_times(paths, JPEG_REPS)
+    largest = max(out.values(), key=lambda r: r["shape"][0] * r["shape"][1])
+    try:
+        import PIL
+        from PIL import Image
+        from d3gs_tpu_torch.data.jpeg import read_jpeg
+        pillow = {"version": PIL.__version__, "equal": all(
+            np.array_equal(read_jpeg(p), np.asarray(Image.open(p)))
+            for p in paths)}
+    except ImportError:
+        pillow = None
+    log(f"[4m-a] {len(out)} JPEG fixtures decoded on the host: "
+        f"{json.dumps(out)}; Pillow on the host: {pillow}")
+    bad = [k for k, r in out.items() if r["equal_to_png"] is not True]
+    if bad or largest["shape"][0] * largest["shape"][1] < 250_000:
+        raise AssertionError(f"4m-a: {bad} differ from Pillow's decode, or "
+                             f"no fixture of 0.25 MP ({largest})")
+    return {"fixtures": out, "ms_per_mp": largest["ms_per_mp"],
+            "pillow": pillow}
+
+
+def colmap_jpeg_path(root) -> dict:
+    """Phase 4m-b: tests/torch_port_jpeg/colmap/ (six 161x121 JPEG views
+    of bench.py's scene, a COLMAP model of the port's writers) loaded by
+    `load_scene_data` (timed), then `python -m d3gs_tpu_torch.train`
+    (baseline) for COLMAP_ITERATIONS on it with the blend launches counted;
+    the last logged loss must be below the first."""
+    import shutil
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.scene import load_scene_data
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    data = os.path.join(root, "colmap_jpeg")
+    shutil.copytree(os.path.join(JPEG_FIXTURES, "colmap"), data)
+    t0 = time.perf_counter()
+    scene = load_scene_data(C.ModelParams(source_path=data, eval=True))
+    load_s = time.perf_counter() - t0
+    shapes = sorted({c.image.shape for c in scene.train_cameras
+                     + scene.test_cameras})
+    it = COLMAP_ITERATIONS
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    result = train_main([
+        "-s", data, "-m", os.path.join(root, "colmap_model"), "--eval",
+        "--quiet", "--iterations", str(it), "--warm_up",
+        str(COLMAP_WARM_UP), "--test_iterations", str(it),
+        "--save_iterations", str(it)])
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    out = {"scene_load_s": load_s, "image_shapes": [list(s) for s in shapes],
+           "views": [len(scene.train_cameras), len(scene.test_cameras)],
+           "train_s": time.perf_counter() - t0, "launches": launches,
+           "losses": result.losses, "psnr": result.test_psnrs}
+    log(f"[4m-b] COLMAP JPEG set: {json.dumps(out)}")
+    losses = [v for _, v in result.losses]
+    if not (shapes == [(121, 161, 3)] and len(losses) >= 2
+            and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0] and launches["blend_bwd"] >= it
+            and launches["blend_fwd"] >= it + 1):
+        raise AssertionError(f"4m-b: {out}")
+    return out
+
+
+def ptv3_inputs(ply_path: str):
+    """4b's checkpoint as PTv3's cloud: xyz normalised to the box and the
+    SH-DC colour (6 features), the grid floor((xyz - min) / (extent /
+    1023))."""
+    from d3gs_tpu_torch.data.ply import read_ply_columns
+    from d3gs_tpu_torch.ops.sh import sh2rgb
+    v, _ = read_ply_columns(ply_path)
+    xyz = np.stack([v["x"], v["y"], v["z"]], -1).astype(np.float32)
+    dc = np.stack([v[f"f_dc_{i}"] for i in range(3)], -1).astype(np.float32)
+    lo = xyz.min(0)
+    extent = float((xyz.max(0) - lo).max())
+    feats = np.concatenate([(xyz - lo) / extent, sh2rgb(dc)], -1)
+    grid = np.clip(np.floor((xyz - lo) / (extent / 1023)), 0, 1023)
+    return feats.astype(np.float32), grid.astype(np.int32)
+
+
+def ptv3_path(dev, ply_path: str) -> dict:
+    """Phase 4m-c: PointTransformerV3 at the reference defaults (14.2 M
+    parameters, seeded weights) on 4b's checkpoint: the deterministic
+    forward and a training-mode forward + backward (seeded generator) by
+    CUDA events, peak memory, every output and gradient finite; then the
+    card against the port on the CPU on a PTV3_CHECK_POINTS subsample with
+    PTV3_CHECK_DEAD of its rows dead."""
+    import copy
+    from d3gs_tpu_torch.models.ptv3 import PointTransformerV3
+    feats, grid = ptv3_inputs(ply_path)
+    n = len(feats)
+    model = PointTransformerV3(device=dev)
+    f = torch.from_numpy(feats).to(dev)
+    g = torch.from_numpy(grid).to(dev)
+    m = torch.ones(n, device=dev)
+    gen = torch.Generator().manual_seed(0)
+
+    @torch.no_grad()
+    def forward():
+        return model(f, g, m)
+
+    def train_step():
+        model.zero_grad(set_to_none=True)
+        out = model(f, g, m, deterministic=False, generator=gen)
+        out.square().mean().backward()
+        return out
+
+    out = forward()
+    torch.cuda.synchronize()
+    fwd_ms = cuda_ms(forward, PTV3_REPS, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    train_out = train_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(train_out)
+                  .all() and all(torch.isfinite(p.grad).all()
+                                 for p in model.parameters()))
+    step_ms = cuda_ms(train_step, PTV3_REPS, warmup=1)
+    # the card against the CPU at full width on a subsample
+    rng = np.random.default_rng(0)
+    sub = np.sort(rng.choice(n, min(PTV3_CHECK_POINTS, n), replace=False))
+    mask = (rng.random(len(sub)) >= PTV3_CHECK_DEAD).astype(np.float32)
+    cpu_model = copy.deepcopy(model).cpu()
+    args = (torch.from_numpy(feats[sub]), torch.from_numpy(grid[sub]),
+            torch.from_numpy(mask))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model(*args)
+        got = model(*(a.to(dev) for a in args)).cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    res = {"points": n, "parameters": sum(p.numel()
+                                          for p in model.parameters()),
+           "forward_ms": fwd_ms, "train_fwd_bwd_ms": step_ms,
+           "peak_memory_gb": peak / 1e9, "finite": finite,
+           "card_vs_cpu": {"points": len(sub), "dead": int((mask == 0).sum()),
+                           "max_rel_err": err, "tol": PTV3_CHECK_TOL,
+                           "seconds": time.perf_counter() - t0},
+           "output_shape": list(out.shape), "card": nvidia_smi()}
+    log(f"[4m-c] PTv3 (defaults) on 4b's checkpoint: {json.dumps(res)}")
+    if not (finite and err <= PTV3_CHECK_TOL and out.shape == (n, 64)
+            and got.shape == (len(sub), 64)):
+        raise AssertionError(f"4m-c: {res}")
+    return res
+
+
+def jpeg_ptv3_path(dev, root, ply_path) -> dict:
+    """Phase 4m: a-c above."""
+    t0 = time.perf_counter()
+    out = {"decode": jpeg_fixtures(), "colmap": colmap_jpeg_path(root),
+           "ptv3": ptv3_path(dev, ply_path)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[4m] took {out['seconds']:.1f} s")
+    return out
+
+
 def blend_kernel_times(records, bins, bg, grid) -> dict:
     """Phase 5: both blend kernels alone on one scene, launched into
     preallocated outputs (so the wrappers' host work, checks and
@@ -3372,6 +3552,10 @@ def main() -> int:
         # ---- 4l. multi-GPU on the one card ------------------------------
         mesh = mesh_path(dev, data_f, os.path.join(tmp, "flagship"),
                          flagship_first_loss, state, field, cam, tmp)
+        # ---- 4m. JPEG decoding, a JPEG COLMAP set, PTv3 -----------------
+        jpeg_ptv3 = jpeg_ptv3_path(dev, tmp, os.path.join(
+            tmp, "trained", "point_cloud", f"iteration_{TRAIN_ITERATIONS}",
+            "point_cloud.ply"))
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
         f"{launches}, adaptive flagship {adaptive['launches']}, "
@@ -3382,7 +3566,8 @@ def main() -> int:
         f"{side['viewer']['gui_launches']}, sweep "
         f"{side['sweep']['launches']}, mesh (ranks) "
         f"{json.dumps(mesh['gloo']['launches'])}, mesh CLI "
-        f"{json.dumps({m: r['launches'] for m, r in mesh['cli'].items()})}")
+        f"{json.dumps({m: r['launches'] for m, r in mesh['cli'].items()})}, "
+        f"COLMAP JPEG set {jpeg_ptv3['colmap']['launches']}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,

@@ -7,9 +7,11 @@ scene/dataset_readers.py). Each reader returns a `SceneData` of host-side
 `np.random.default_rng(rng_seed)`, so both packages write the same
 `points3d.ply`.
 
-Images are read by `load_image`, which decodes PNG only (`image_io.py`): a
-JPEG set (COLMAP scenes usually are) raises a ValueError that names the
-format, where the JAX package decodes it through Pillow.
+Images are read by `load_image`, which decodes PNG and JPEG
+(`image_io.read_image`; JPEG equal to Pillow's decode bit for bit, so a
+JPEG set, as COLMAP scenes usually are, loads to the JAX readers' arrays).
+Any other format raises a ValueError that names it, where the JAX package
+reads whatever Pillow reads.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from ..ops.camera_math import focal2fov, fov2focal
 from ..ops.sh import sh2rgb
 from . import colmap_loader as cl
 from .cameras import CameraInfo
-from .image_io import read_png
+from .image_io import read_image
 from .ply import read_pointcloud_ply, write_pointcloud_ply
 
 
@@ -44,9 +46,9 @@ class SceneData(NamedTuple):
 
 
 def load_image(path: str) -> np.ndarray:
-    """PNG -> float32 in [0, 1], (H, W) or (H, W, C); a JPEG or any other
+    """PNG or JPEG -> float32 in [0, 1], (H, W) or (H, W, C); any other
     format raises ValueError."""
-    return read_png(path).astype(np.float32) / 255.0
+    return read_image(path).astype(np.float32) / 255.0
 
 
 def _write_random_cloud(ply_path: str, rng_seed: int,

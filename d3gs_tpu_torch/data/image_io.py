@@ -1,14 +1,17 @@
-"""PNG read/write with the standard library (zlib + struct).
+"""PNG read/write with the standard library (zlib + struct), and
+`read_image`, which reads PNG or JPEG.
 
 Counterpart of the JAX package's image I/O (`dataset_readers._load_image`,
 `render_modes._save_png`), which goes through Pillow/imageio; the port
-carries its own codec so that it needs neither. It covers what those paths
-use: 8-bit, non-interlaced gray, RGB and RGBA, all five row filters on read.
+carries its own codecs so that it needs neither. The PNG codec covers what
+those paths use: 8-bit, non-interlaced gray, RGB and RGBA, all five row
+filters on read.
 
-PNG is the one format the port decodes. The JAX package reads any format
-Pillow reads; here a JPEG (COLMAP sets such as MipNeRF-360, Tanks&Temples
-and Deep Blending usually are) raises a ValueError that names the format
-and says to convert the set to PNG, and so does any other format.
+`read_image` decodes a file by its signature: PNG here, JPEG (COLMAP sets
+such as MipNeRF-360, Tanks&Temples and Deep Blending usually are) with
+`jpeg.py`, equal to Pillow bit for bit. The JAX package reads any format
+Pillow reads; here any other format raises a ValueError. The port writes
+PNG only.
 
 `read_label_png` reads segmentation label maps, which are usually paletted
 or 16-bit: it returns what `np.asarray(PIL.Image.open(p))[..., 0]` gives
@@ -21,8 +24,9 @@ import zlib
 
 import numpy as np
 
+from .jpeg import SIGNATURE as _JPEG_SIGNATURE, decode_jpeg
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_JPEG_SIGNATURE = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 6: 4}          # PNG color type -> samples per pixel
 
 
@@ -65,17 +69,16 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def _read_chunks(path: str):
+def _read_chunks(path: str, data: bytes | None = None):
     """-> (IHDR fields, the joined IDAT bytes) of a PNG file."""
-    with open(path, "rb") as f:
-        data = f.read()
+    if data is None:
+        with open(path, "rb") as f:
+            data = f.read()
     if data[:3] == _JPEG_SIGNATURE:
-        raise ValueError(
-            f"{path}: a JPEG image; the port decodes PNG only (a JPEG decoder "
-            "is queued in ROADMAP.md) - convert the data set's images to PNG")
+        raise ValueError(f"{path}: a JPEG image; read it with read_image")
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: neither PNG nor JPEG; the port decodes PNG "
-                         "only - convert the data set's images to PNG")
+        raise ValueError(f"{path}: neither PNG nor JPEG; the port decodes "
+                         "those two only - convert the images to PNG")
     pos, idat, header = 8, [], None
     while pos < len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
@@ -92,9 +95,23 @@ def _read_chunks(path: str):
     return header, b"".join(idat)
 
 
-def read_png(path: str) -> np.ndarray:
+def read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG file -> uint8 array, what `np.asarray(PIL.Image.open(
+    path))` gives for the formats each codec covers; any other format
+    raises ValueError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:3] == _JPEG_SIGNATURE:
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    return read_png(path, data)
+
+
+def read_png(path: str, data: bytes | None = None) -> np.ndarray:
     """-> uint8 array (H, W) for gray, (H, W, 3|4) for RGB/RGBA."""
-    header, idat = _read_chunks(path)
+    header, idat = _read_chunks(path, data)
     width, height, depth, color, _, _, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace != 0:
         raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color "

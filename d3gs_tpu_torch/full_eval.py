@@ -11,8 +11,8 @@ full_eval.py:15-77), in-process.
 Two scene collections, as in the JAX CLI: the reference's static-3DGS
 lists (MipNeRF-360 outdoor/indoor with the images_4/images_2 resolution
 pyramids, Tanks&Temples, Deep Blending) and the D-NeRF dynamic scenes.
-Those COLMAP sets are usually JPEG, which the port does not decode
-(`data/image_io.py`): convert them to PNG first.
+Those COLMAP sets are usually JPEG, which the port decodes
+(`data/jpeg.py`).
 """
 from __future__ import annotations
 

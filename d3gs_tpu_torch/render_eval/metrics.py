@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.image_io import read_png
+from ..data.image_io import read_image
 from ..ops.losses import psnr as psnr_fn, ssim as ssim_fn
 from . import lpips as lpips_mod
 
@@ -28,7 +28,7 @@ def _read_images(renders_dir: str, gt_dir: str):
     renders, gts = [], []
     for fname in names:
         for d, out in ((renders_dir, renders), (gt_dir, gts)):
-            img = read_png(os.path.join(d, fname)).astype(np.float32) / 255.0
+            img = read_image(os.path.join(d, fname)).astype(np.float32) / 255.0
             out.append(img[..., :3])
     return renders, gts, names
 

@@ -6,8 +6,8 @@ and txt, Nerfies under each split rule, DTU, Plenoptic Video, dynamic360)
 and a Blender set, each package reads its own copy; every `CameraInfo`
 field, the splits, the normalization and the point cloud (which each
 package writes into its copy when the set has none) are equal exactly: the
-same numpy math on the same PNG bytes. The resize equals Pillow's default
-`Image.resize` bit for bit.
+same numpy math on the same PNG bytes; and so on the same sets with JPEG
+images. The resize equals Pillow's default `Image.resize` bit for bit.
 """
 import json
 import math
@@ -244,23 +244,70 @@ def test_sniff_rejects_unknown_sets(tmp_path):
 
 
 def test_jpeg_and_other_formats_raise(tmp_path):
+    """A JPEG decodes to Pillow's arrays (it raised before the port had a
+    decoder); any other format still raises; a COLMAP set of JPEGs loads
+    to the JAX reader's arrays."""
     from PIL import Image
-    img = np.random.default_rng(0).integers(0, 256, (8, 8, 3), np.uint8)
+    img = _image(8, 8)
     jpg = str(tmp_path / "a.jpg")
     Image.fromarray(img).save(jpg)
-    with pytest.raises(ValueError, match="JPEG") as e:
-        tdr.load_image(jpg)
-    assert jpg in str(e.value) and "PNG" in str(e.value)
+    got = tdr.load_image(jpg)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, jdr._load_image(jpg))
     gif = str(tmp_path / "a.gif")
     Image.fromarray(img).save(gif)
     with pytest.raises(ValueError, match="neither PNG nor JPEG"):
         tdr.load_image(gif)
-    # a COLMAP set of JPEGs stops at its first image, naming the format
-    root = str(tmp_path / "colmap")
-    _make_colmap_fixture(root)
-    shutil.copy(jpg, os.path.join(root, "images", "0.png"))
-    with pytest.raises(ValueError, match="JPEG"):
-        tdr.read_colmap_scene(root)
+    # a COLMAP set whose images are JPEG (under their .png names)
+    root_j, root_t = str(tmp_path / "colmap_j"), str(tmp_path / "colmap_t")
+    _make_colmap_fixture(root_j)
+    _to_jpeg(root_j)
+    shutil.copytree(root_j, root_t)
+    assert_scenes_equal(tdr.read_colmap_scene(root_t),
+                        jdr.read_colmap_scene(root_j), root_t, root_j)
+
+
+def _to_jpeg(root, seed=0):
+    """Every image of a set rewritten as JPEG bytes under its own name: a
+    fresh pattern of the same size, quality 90, 4:2:0 (odd sizes crop)."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for dirpath, _, names in sorted(os.walk(root)):
+        for name in sorted(names):
+            if not name.endswith(".png"):
+                continue
+            path = os.path.join(dirpath, name)
+            h, w = np.asarray(Image.open(path)).shape[:2]
+            Image.fromarray(_image(h, w, int(rng.integers(1 << 30)))).save(
+                path, "JPEG", quality=90)
+    return root
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_load_scene_data_jpeg_sets_match_jax(tmp_path, kind):
+    """Each reader of `load_scene_data` on a set whose images are all JPEG
+    loads the JAX reader's arrays exactly."""
+    root_j, root_t = _twin(tmp_path, lambda r: _to_jpeg(KINDS[kind](r)))
+    j = JS.load_scene_data(JC.ModelParams(source_path=root_j, eval=True,
+                                          white_background=True))
+    t = TS.load_scene_data(TC.ModelParams(source_path=root_t, eval=True,
+                                          white_background=True))
+    assert_scenes_equal(t, j, root_t, root_j)
+
+
+def test_committed_colmap_jpeg_set_matches_jax(tmp_path):
+    """tests/torch_port_jpeg/colmap/ (the set chip_smoke.py trains on):
+    six 161x121 JPEG views, read by both packages from their own copies."""
+    src = os.path.join(os.path.dirname(__file__), "torch_port_jpeg",
+                       "colmap")
+    root_j, root_t = str(tmp_path / "j"), str(tmp_path / "t")
+    shutil.copytree(src, root_j)
+    shutil.copytree(src, root_t)
+    j = JS.load_scene_data(JC.ModelParams(source_path=root_j, eval=True))
+    t = TS.load_scene_data(TC.ModelParams(source_path=root_t, eval=True))
+    assert len(t.train_cameras) + len(t.test_cameras) == 6
+    assert t.train_cameras[0].image.shape == (121, 161, 3)
+    assert_scenes_equal(t, j, root_t, root_j)
 
 
 def _image(h, w, seed=0):
