@@ -99,6 +99,19 @@ Phases (any failure exits non-zero):
          steps at D = 4 and 2 x 2, each against the single-device step,
          with the collectives' bytes per step; (d) the world-size-1
          camera and gauss+tile steps timed beside the single-device step;
+     4m. (a) every JPEG of tests/torch_port_jpeg/ decoded on the host,
+         bit-equal to its committed PNG of Pillow's decode; (b) the
+         committed six-view COLMAP JPEG set loaded and trained by the
+         baseline CLI for 50 iterations; (c) PointTransformerV3 at the
+         defaults on 4b's checkpoint, card against CPU;
+     4n. (a) the JPEG encoder on render_420.png's pixels, byte-equal to
+         the committed Pillow encode, in ms per megapixel; (b)
+         `convert.main([... "--skip_matching", "--resize"])` with a fake
+         `colmap` on the COLMAP JPEG set (18 pyramid JPEGs byte-equal to
+         Pillow's) and on an RGBA PNG set (9 PNGs pixel-equal); (c) 4b's
+         set rewritten as 16-bit RGBA frames, half of them Adam7, loaded
+         equal to the 8-bit set and trained by the baseline CLI for 50
+         iterations with the blend launches counted;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, both blend
      kernels alone (CUDA events and profiler device time) on the bench
@@ -2996,6 +3009,214 @@ def jpeg_ptv3_path(dev, root, ply_path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 4n: the JPEG encoder, convert --resize, 16-bit and interlaced PNG frames
+# --------------------------------------------------------------------------
+ENCODE_REPS = 3                  # 4n-a: encodes of the fixture (best kept)
+PNG16_ITERATIONS = 50            # 4n-c: baseline steps (losses logged at
+PNG16_WARM_UP = 25               # 1 and 50), deform steps from 25
+PYRAMID = (2, 4, 8)
+
+
+def _tests_module(name: str):
+    """A helper module of tests/ loaded from its file: the card's Python
+    has another package named `tests` on its path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"smoke_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _pillow_or_none():
+    try:
+        import PIL
+        from PIL import Image
+        return PIL.__version__, Image
+    except ImportError:
+        return None, None
+
+
+def jpeg_encode_check() -> dict:
+    """Phase 4n-a: the pixels of tests/torch_port_jpeg/render_420.png
+    (0.256 MP) encoded on the host by `data/jpeg_encode.py` at Pillow's
+    defaults, byte-equal to the committed Pillow-written
+    encode/render_420_q75.jpg; the best of ENCODE_REPS encodes in ms and ms
+    per megapixel. Where Pillow imports on the host, its version and
+    whether its own encode gives the same bytes are logged (only the
+    fixture decides)."""
+    import io
+    from d3gs_tpu_torch.data.image_io import read_image
+    from d3gs_tpu_torch.data.jpeg_encode import encode_jpeg
+    img = read_image(os.path.join(JPEG_FIXTURES, "render_420.png"))
+    with open(os.path.join(JPEG_FIXTURES, "encode", "render_420_q75.jpg"),
+              "rb") as f:
+        want = f.read()
+    times = []
+    for _ in range(ENCODE_REPS):
+        t0 = time.perf_counter()
+        got = encode_jpeg(img)
+        times.append(time.perf_counter() - t0)
+    version, Image = _pillow_or_none()
+    pillow = None
+    if Image is not None:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG")
+        pillow = {"version": version, "equal": buf.getvalue() == got}
+    ms = 1e3 * min(times)
+    mp = img.shape[0] * img.shape[1] / 1e6
+    out = {"shape": list(img.shape), "bytes": len(got),
+           "equal_to_fixture": got == want, "ms": ms, "ms_per_mp": ms / mp,
+           "pillow": pillow}
+    if not (out["equal_to_fixture"] and mp >= 0.25):
+        raise AssertionError(f"4n-a: {out}")
+    return out
+
+
+def convert_resize_path(root) -> dict:
+    """Phase 4n-b: `d3gs_tpu_torch.convert.main(["-s", ...,
+    "--skip_matching", "--resize"])` on a copy of tests/torch_port_jpeg/
+    colmap/ (its six 161x121 JPEG views in input/, its model in
+    distorted/sparse/0) and on the committed RGBA PNG set, with
+    tests/torch_port_fake_colmap.py standing in for the `colmap` binary,
+    which the card's machine lacks (its image_undistorter copies the
+    images and the model). Every images_{2,4,8}/*.jpg must equal the
+    committed Pillow-written file byte for byte (colmap_pyramid/), every
+    RGBA PNG the committed Pillow output's pixels (rgba/images_*), and
+    sparse/0 must hold the model. Where Pillow imports on the host, whether
+    its own pyramid gives the same JPEG bytes is logged."""
+    import io
+    import shutil
+    from d3gs_tpu_torch import convert
+    from d3gs_tpu_torch.data.image_io import read_image
+    fake = _tests_module("torch_port_fake_colmap").write_fake_colmap(
+        os.path.join(root, "fake_colmap"))
+    model = os.path.join(JPEG_FIXTURES, "colmap", "sparse", "0")
+    out = {}
+    for kind, images, ref in (("jpeg", "colmap/images", "colmap_pyramid"),
+                              ("rgba_png", "rgba/input", "rgba")):
+        src = os.path.join(root, f"convert_{kind}")
+        shutil.copytree(os.path.join(JPEG_FIXTURES, images),
+                        os.path.join(src, "input"))
+        shutil.copytree(model, os.path.join(src, "distorted", "sparse", "0"))
+        t0 = time.perf_counter()
+        convert.main(["-s", src, "--skip_matching", "--resize",
+                      "--colmap_executable", fake])
+        seconds = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join(src, "images")))
+        equal = 0
+        for div in PYRAMID:
+            for name in names:
+                got = os.path.join(src, f"images_{div}", name)
+                want = os.path.join(JPEG_FIXTURES, ref, f"images_{div}", name)
+                if kind == "jpeg":
+                    with open(got, "rb") as a, open(want, "rb") as b:
+                        equal += a.read() == b.read()
+                else:
+                    equal += bool(np.array_equal(read_image(got),
+                                                 read_image(want)))
+        out[kind] = {"images": len(names), "files": len(PYRAMID) * len(names),
+                     "equal": equal, "seconds": seconds,
+                     "model": sorted(os.listdir(os.path.join(src, "sparse",
+                                                             "0")))}
+    version, Image = _pillow_or_none()
+    if Image is not None:
+        src = os.path.join(root, "convert_jpeg")
+        same = 0
+        for div in PYRAMID:
+            for name in sorted(os.listdir(os.path.join(src, "images"))):
+                im = Image.open(os.path.join(src, "images", name))
+                buf = io.BytesIO()
+                im.resize((im.width // div, im.height // div)).save(buf,
+                                                                    "JPEG")
+                with open(os.path.join(src, f"images_{div}", name),
+                          "rb") as f:
+                    same += buf.getvalue() == f.read()
+        out["pillow"] = {"version": version, "jpeg_equal": same}
+    else:
+        out["pillow"] = None
+    model_files = ["cameras.bin", "images.bin", "points3D.bin"]
+    if not (out["jpeg"]["files"] == out["jpeg"]["equal"] == 18
+            and out["rgba_png"]["files"] == out["rgba_png"]["equal"] == 9
+            and out["jpeg"]["model"] == out["rgba_png"]["model"]
+            == model_files):
+        raise AssertionError(f"4n-b: {out}")
+    return out
+
+
+def png16_frames_path(dev, data, root) -> dict:
+    """Phase 4n-c: 4b's D-NeRF set (400x400 RGBA frames) copied with every
+    frame rewritten as 16-bit RGBA (each sample v -> v · 257), every other
+    one Adam7-interlaced, by tests/torch_port_png_writer.py; both sets
+    loaded by `load_scene_data` (timed), whose images must be equal
+    exactly; then `python -m d3gs_tpu_torch.train` (baseline) for
+    PNG16_ITERATIONS on the 16-bit set with the blend launches counted:
+    at least PNG16_ITERATIONS + 1 forward and PNG16_ITERATIONS backward,
+    and the last logged loss below the first."""
+    import shutil
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.image_io import read_png
+    from d3gs_tpu_torch.data.scene import load_scene_data
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    write_png16_rgba = _tests_module("torch_port_png_writer").write_png16_rgba
+    data16 = os.path.join(root, "data_png16")
+    shutil.copytree(data, data16)
+    frames = interlaced = 0
+    for split in ("train", "test"):
+        for name in sorted(n for n in os.listdir(os.path.join(data16, split))
+                           if n.endswith(".png")):
+            path = os.path.join(data16, split, name)
+            write_png16_rgba(path, read_png(path), interlace=bool(frames % 2))
+            interlaced += frames % 2
+            frames += 1
+    loads = {}
+    scenes = {}
+    for key, src in (("8bit", data), ("16bit", data16)):
+        t0 = time.perf_counter()
+        scenes[key] = load_scene_data(C.ModelParams(source_path=src,
+                                                    eval=True))
+        loads[key] = time.perf_counter() - t0
+    cams = {k: v.train_cameras + v.test_cameras for k, v in scenes.items()}
+    equal = len(cams["8bit"]) == len(cams["16bit"]) == frames and all(
+        np.array_equal(np.asarray(a.image), np.asarray(b.image))
+        for a, b in zip(cams["8bit"], cams["16bit"]))
+    it = PNG16_ITERATIONS
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    result = train_main([
+        "-s", data16, "-m", os.path.join(root, "png16_model"), "--eval",
+        "--is_blender", "--quiet", "--iterations", str(it), "--warm_up",
+        str(PNG16_WARM_UP), "--test_iterations", str(it),
+        "--save_iterations", str(it)])
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    out = {"frames": frames, "interlaced": interlaced,
+           "images_equal_to_8bit": equal, "load_s": loads,
+           "train_s": time.perf_counter() - t0, "launches": launches,
+           "losses": result.losses, "psnr": result.test_psnrs}
+    losses = [v for _, v in result.losses]
+    if not (equal and interlaced and len(losses) >= 2
+            and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0] and launches["blend_bwd"] >= it
+            and launches["blend_fwd"] >= it + 1):
+        raise AssertionError(f"4n-c: {out}")
+    return out
+
+
+def encode_convert_png16_path(dev, data, root) -> dict:
+    """Phase 4n: a-c above, one [4n] line with their numbers."""
+    t0 = time.perf_counter()
+    out = {"encode": jpeg_encode_check(), "convert": convert_resize_path(
+        root), "png16": png16_frames_path(dev, data, root)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[4n] {json.dumps(out)}; {nvidia_smi()}")
+    log(f"[4n] took {out['seconds']:.1f} s")
+    return out
+
+
 def blend_kernel_times(records, bins, bg, grid) -> dict:
     """Phase 5: both blend kernels alone on one scene, launched into
     preallocated outputs (so the wrappers' host work, checks and
@@ -3556,6 +3777,8 @@ def main() -> int:
         jpeg_ptv3 = jpeg_ptv3_path(dev, tmp, os.path.join(
             tmp, "trained", "point_cloud", f"iteration_{TRAIN_ITERATIONS}",
             "point_cloud.ply"))
+        # ---- 4n. JPEG encoding, convert --resize, 16-bit PNG frames -----
+        png16 = encode_convert_png16_path(dev, data, tmp)
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
         f"{launches}, adaptive flagship {adaptive['launches']}, "
@@ -3567,7 +3790,8 @@ def main() -> int:
         f"{side['sweep']['launches']}, mesh (ranks) "
         f"{json.dumps(mesh['gloo']['launches'])}, mesh CLI "
         f"{json.dumps({m: r['launches'] for m, r in mesh['cli'].items()})}, "
-        f"COLMAP JPEG set {jpeg_ptv3['colmap']['launches']}")
+        f"COLMAP JPEG set {jpeg_ptv3['colmap']['launches']}, 16-bit PNG "
+        f"set {png16['png16']['launches']}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,

@@ -13,14 +13,27 @@ and the CLI exits with the same codes: 1 when the executable is not on
 PATH, a failed command's own code otherwise. It runs on the host only:
 nothing here uses torch or the card.
 
---resize reads each undistorted image with `data/image_io.py`, resizes it
-to (width // d, height // d) with `data/resize.py` (Pillow's default
-bicubic, bit for bit) and writes it under the same name. The port writes
-PNG only, so it resizes PNG sets. The one deviation from the JAX CLI: the
-port has no JPEG encoder, so --resize on a set whose input images are JPEG
-raises a ValueError naming the missing encoder before any `colmap` command
-runs (the JAX CLI writes the pyramid back as JPEG through Pillow). An RGBA
-image raises too: Pillow resizes it with premultiplied alpha.
+--resize reads each undistorted image once with `data/image_io.py`,
+resizes it to (width // d, height // d) for d = 2, 4, 8 with
+`data/resize.py` (Pillow's default bicubic, bit for bit; RGBA and gray +
+alpha with Pillow's premultiplied alpha) and writes it under the same
+name in the format its extension names, case-insensitive, as Pillow's
+`save` picks it: `.jpg`, `.jpeg`, `.jpe` and `.jfif` through
+`data/jpeg_encode.py` (Pillow's default JPEG encode, byte for byte: quality
+75, 4:2:0, the input's COM comment carried over), `.png` and `.apng` as
+PNG with the input's ICC profile and tRNS transparency. The pyramid is the
+JAX CLI's, JPEG bytes equal and PNG pixels and Pillow `info` equal.
+
+It raises where Pillow raises, and in three places Pillow does not:
+- RGBA or gray + alpha to a JPEG name raises an OSError ("cannot write
+  mode RGBA as JPEG"), as Pillow's save does;
+- another extension raises a ValueError (Pillow would write TIFF, BMP,
+  ...; the port writes JPEG and PNG only);
+- palette, 16-bit gray and 1-bit gray images raise a ValueError from the
+  reader: Pillow resizes the first and last with NEAREST and the second in
+  16 bits, which the port does not do.
+The JAX CLI opens each image once per level; the port decodes it once for
+all three, with the same output.
 """
 from __future__ import annotations
 
@@ -31,7 +44,7 @@ import subprocess
 import sys
 
 from .data.image_io import read_image, write_png
-from .data.jpeg import SIGNATURE as JPEG_SIGNATURE
+from .data.jpeg_encode import encode_jpeg
 from .data.resize import resize
 
 
@@ -43,30 +56,41 @@ def run(cmd: list[str]) -> None:
         sys.exit(rc)
 
 
-def _jpeg_images(folder: str) -> list[str]:
-    names = []
-    for name in sorted(os.listdir(folder)) if os.path.isdir(folder) else []:
-        with open(os.path.join(folder, name), "rb") as f:
-            if f.read(3) == JPEG_SIGNATURE:
-                names.append(name)
-    return names
+JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif")
+PNG_EXTENSIONS = (".png", ".apng")
+
+
+def _save_like_pillow(path: str, img, info: dict) -> None:
+    """Write `img` with the `info` of `read_image(..., info=True)` as
+    Pillow's `Image.save(path)` does for an image opened with that info:
+    the format from the extension, JPEG with the comment, PNG with the ICC
+    profile and transparency."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in JPEG_EXTENSIONS:
+        if img.ndim == 3 and img.shape[2] in (2, 4):
+            mode = "LA" if img.shape[2] == 2 else "RGBA"
+            raise OSError(f"cannot write mode {mode} as JPEG")
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(img, comment=info.get("comment")))
+    elif ext in PNG_EXTENSIONS:
+        write_png(path, img, icc_profile=info.get("icc_profile"),
+                  transparency=info.get("transparency"))
+    else:
+        raise ValueError(f"{path}: the port writes JPEG and PNG only "
+                         f"(extension {ext!r})")
 
 
 def resize_pyramid(src: str) -> None:
     """<src>/images -> images_2/, images_4/, images_8/ at size // d."""
     img_dir = os.path.join(src, "images")
     for div in (2, 4, 8):
-        out_dir = os.path.join(src, f"images_{div}")
-        os.makedirs(out_dir, exist_ok=True)
-        for name in os.listdir(img_dir):
-            img = read_image(os.path.join(img_dir, name))
-            if img.ndim == 3 and img.shape[2] == 4:
-                raise ValueError(
-                    f"{name}: RGBA; Pillow resizes it with premultiplied "
-                    "alpha, which the port's resize does not do")
-            h, w = img.shape[:2]
-            write_png(os.path.join(out_dir, name),
-                      resize(img, (w // div, h // div)))
+        os.makedirs(os.path.join(src, f"images_{div}"), exist_ok=True)
+    for name in os.listdir(img_dir):
+        img, info = read_image(os.path.join(img_dir, name), info=True)
+        h, w = img.shape[:2]
+        for div in (2, 4, 8):
+            _save_like_pillow(os.path.join(src, f"images_{div}", name),
+                           resize(img, (w // div, h // div)), info)
 
 
 def main(argv=None) -> None:
@@ -87,14 +111,6 @@ def main(argv=None) -> None:
         sys.exit(1)
     use_gpu = "0" if args.no_gpu else "1"
     src = args.source_path
-    if args.resize:
-        jpegs = _jpeg_images(os.path.join(src, "input"))
-        if jpegs:
-            raise ValueError(
-                f"--resize: {len(jpegs)} input images are JPEG (first "
-                f"{jpegs[0]!r}) and the port has no JPEG encoder to write "
-                "the pyramid; convert the set's images to PNG, or run "
-                "without --resize")
 
     if not args.skip_matching:
         os.makedirs(os.path.join(src, "distorted/sparse"), exist_ok=True)

@@ -48,6 +48,9 @@ from array import array
 import numpy as np
 
 SIGNATURE = b"\xff\xd8\xff"              # SOI and the next marker's FF
+# marker codes (the byte after 0xFF) that the decoder and encoder share
+SOF0, DHT, SOI, EOI, SOS, DQT, DRI = 0xC0, 0xC4, 0xD8, 0xD9, 0xDA, 0xDB, 0xDD
+APP0, COM = 0xE0, 0xFE
 
 # natural (row-major) index of zigzag position k
 _NATURAL = np.array([
@@ -484,7 +487,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if marker == 0xFF:                      # fill byte
             pos -= 1
             continue
-        if marker == 0xD9:
+        if marker == EOI:
             eoi = True
             break
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
@@ -528,7 +531,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c.stride = mcus_x * c.h
                 c.rows = mcus_y * c.v
                 c.coef = array("i", bytes(4 * 64 * c.stride * c.rows))
-        elif marker == 0xC4:
+        elif marker == DHT:
             i = 0
             while i < len(body):
                 tc, th = body[i] >> 4, body[i] & 15
@@ -541,7 +544,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 else:
                     dc_luts[th] = luts[1]
                 i += 17 + total
-        elif marker == 0xDB:
+        elif marker == DQT:
             i = 0
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
@@ -552,14 +555,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     q = np.frombuffer(body[i + 1:i + 65], np.uint8)
                     i += 65
                 qt[tq] = q.astype(np.int64)
-        elif marker == 0xDD:
+        elif marker == DRI:
             restart = (body[0] << 8) | body[1]
-        elif marker == 0xE0:
+        elif marker == APP0:
             jfif = jfif or body[:5] == b"JFIF\x00"
         elif marker == 0xEE:
             if body[:5] == b"Adobe" and len(body) >= 12:
                 adobe = body[11]
-        elif marker == 0xDA:
+        elif marker == SOS:
             if frame is None:
                 raise ValueError("JPEG: a scan before the frame header")
             ns = body[0]

@@ -16,6 +16,16 @@ Pillow's two-pass convolution (`src/libImaging/Resample.c`), rule by rule:
   and clipped to [0, 255];
 - the horizontal pass runs first and the vertical pass second, each skipped
   when its size does not change, with a uint8 image between them.
+An image with alpha, (H, W, 4) RGBA or (H, W, 2) LA, goes the way
+`Image.resize` sends it (`PIL/Image.py`: it converts RGBA to RGBa and LA to
+La, resamples, and converts back; `src/libImaging/Convert.c`):
+- each colour channel is premultiplied by alpha with MULDIV255,
+  t = c · a + 128, ((t >> 8) + t) >> 8;
+- the two passes run on every channel, alpha included;
+- the colour comes back as 255 · c / a, truncated and clipped to 255, where
+  alpha is neither 0 nor 255 (there it stays as resampled).
+So a pixel of alpha 0 loses its colour: (100, 150, 200, 0) resamples as
+(0, 0, 0, 0). A size that does not change returns a copy, as Pillow does.
 It runs on the host in numpy, where the JAX package resizes.
 """
 from __future__ import annotations
@@ -77,15 +87,37 @@ def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a.astype(np.int32) * b + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
 def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """uint8 (H, W) or (H, W, C) image -> (size[1], size[0], ...) uint8, as
-    `PIL.Image.fromarray(img).resize(size)` (size is (width, height))."""
+    """uint8 (H, W) gray, (H, W, 2) LA, (H, W, 3) RGB or (H, W, 4) RGBA ->
+    (size[1], size[0], ...) uint8, as `PIL.Image.fromarray(img).resize(
+    size)` (size is (width, height)); LA and RGBA with premultiplied
+    alpha."""
     if img.dtype != np.uint8:
         raise ValueError(f"resize: expected uint8, got {img.dtype}")
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (2, 3, 4))):
+        raise ValueError(f"resize: gray, LA, RGB or RGBA only, got shape "
+                         f"{img.shape}")
     width, height = size
+    if (height, width) == img.shape[:2]:
+        return img.copy()
+    alpha = img.ndim == 3 and img.shape[2] in (2, 4)
     out = img
+    if alpha:
+        out = np.concatenate([_muldiv255(img[..., :-1], img[..., -1:]),
+                              img[..., -1:]], -1)
     if width != img.shape[1]:
         out = _pass(out, width, 1)
     if height != img.shape[0]:
         out = _pass(out, height, 0)
-    return out.copy() if out is img else out
+    if alpha:
+        a = out[..., -1:].astype(np.int32)
+        color = out[..., :-1]
+        undo = np.minimum(255 * color.astype(np.int32) // np.maximum(a, 1),
+                          255).astype(np.uint8)
+        out[..., :-1] = np.where((a == 0) | (a == 255), color, undo)
+    return out

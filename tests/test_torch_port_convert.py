@@ -1,15 +1,17 @@
 """The port's COLMAP preprocessing CLI (`d3gs_tpu_torch.convert`) against
 the repository's `convert.py` on the CPU, with a fake `colmap` on PATH that
 records its argv and writes what `image_undistorter` would: both CLIs run
-the same commands in the same order and leave the same tree; --resize on a
-PNG set equals Pillow's bicubic pyramid bit for bit; --resize on a JPEG
-set raises before any command (the port has no JPEG encoder); a missing
+the same commands in the same order and leave the same tree. With --resize
+the pyramid is Pillow's on RGB, RGBA, gray+alpha and gray PNG sets and on
+PNG sets with an ICC profile and tRNS transparency (pixels and Pillow's
+`info` equal), and on RGB, gray and commented JPEG sets (the files equal
+byte for byte); RGBA or gray+alpha under a JPEG name raises as Pillow's
+save does; a JPEG set without --resize runs the four commands; a missing
 executable and a failing command exit with the JAX CLI's codes.
 """
 import json
 import os
 import shutil
-import sys
 
 import numpy as np
 import pytest
@@ -17,33 +19,15 @@ import pytest
 import convert as jax_convert
 from d3gs_tpu_torch import convert as port_convert
 from d3gs_tpu_torch.data.image_io import read_image, write_png
+from tests.torch_port_fake_colmap import write_fake_colmap
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
-
-FAKE_COLMAP = f"""#!{sys.executable}
-import json, os, shutil, sys
-with open(os.environ["FAKE_COLMAP_LOG"], "a") as f:
-    f.write(json.dumps(sys.argv[1:]) + "\\n")
-if sys.argv[1] == os.environ.get("FAKE_COLMAP_FAIL"):
-    sys.exit(3)
-if sys.argv[1] == "image_undistorter":
-    a = dict(zip(sys.argv[2::2], sys.argv[3::2]))
-    out = a["--output_path"]
-    shutil.copytree(a["--image_path"], os.path.join(out, "images"))
-    os.makedirs(os.path.join(out, "sparse"), exist_ok=True)
-    for name in ("cameras.bin", "images.bin", "points3D.bin"):
-        with open(os.path.join(out, "sparse", name), "wb") as f:
-            f.write(name.encode())
-"""
 
 
 @pytest.fixture
 def colmap(tmp_path, monkeypatch):
     """A fake `colmap` first on PATH; -> the file its argv lines go to."""
     bin_dir = tmp_path / "bin"
-    bin_dir.mkdir()
-    exe = bin_dir / "colmap"
-    exe.write_text(FAKE_COLMAP)
-    exe.chmod(0o755)
+    write_fake_colmap(str(bin_dir))
     log = tmp_path / "colmap.log"
     monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.setenv("FAKE_COLMAP_LOG", str(log))
@@ -59,17 +43,35 @@ def _image(h, w, seed):
                    255).astype(np.uint8)
 
 
+ICC = bytes(range(200)) * 2
+
+
 def _source(root, fmt="png"):
-    """<root>/input with three images of odd sizes."""
+    """<root>/input with three images of odd sizes in the format `fmt`."""
     from PIL import Image
     os.makedirs(os.path.join(root, "input"))
     for k, (h, w) in enumerate([(37, 53), (40, 64), (81, 17)]):
         img = _image(h, w, k)
+        alpha = np.random.default_rng(k).choice([0, 255, 3, 90, 200], (h, w))
+        path = os.path.join(root, "input", f"{k}.png")
         if fmt == "png":
-            write_png(os.path.join(root, "input", f"{k}.png"), img)
+            write_png(path, img)
+        elif fmt == "rgba_png":
+            write_png(path, np.dstack([img, alpha]).astype(np.uint8))
+        elif fmt == "la_png":
+            write_png(path, np.dstack([img[..., 1], alpha]).astype(np.uint8))
+        elif fmt == "icc_trns_png":
+            # RGB with a colour key, and gray with a gray key, both with ICC
+            im = Image.fromarray(img) if k != 1 else \
+                Image.fromarray(img[..., 0])
+            im.save(path, icc_profile=ICC,
+                    transparency=(1, 2, 3) if k != 1 else 7)
         else:
-            Image.fromarray(img).save(os.path.join(root, "input",
-                                                   f"{k}.jpg"), quality=90)
+            gray = fmt == "jpg_gray"
+            im = Image.fromarray(img[..., 2] if gray else img)
+            kw = {"comment": f"view {k}"} if fmt == "jpg_comment" else {}
+            im.save(os.path.join(root, "input", f"{k}.jpg"), quality=90,
+                    **kw)
     return root
 
 
@@ -89,35 +91,50 @@ def _run(main, src, flags, log):
 
 
 def _tree(root):
-    """Relative path -> decoded pixels (images) or bytes."""
+    """Relative path -> bytes; a PNG -> (Pillow's pixels, the `info`
+    entries that the pyramid carries over)."""
+    from PIL import Image
     out = {}
     for dirpath, _, names in os.walk(root):
         for name in names:
             path = os.path.join(dirpath, name)
             rel = os.path.relpath(path, root)
-            if name.endswith((".png", ".jpg")):
-                out[rel] = read_image(path)
+            if name.endswith(".png"):
+                im = Image.open(path)
+                out[rel] = (np.asarray(im), {
+                    k: im.info[k] for k in ("icc_profile", "transparency")
+                    if k in im.info})
             else:
                 with open(path, "rb") as f:
                     out[rel] = f.read()
     return out
 
 
-FLAGS = {"defaults": [], "no_gpu_camera": ["--no_gpu", "--camera", "PINHOLE"],
-         "skip_matching": ["--skip_matching"],
-         "resize": ["--resize"]}
+# case -> (flags, the input images' format)
+CASES = {"defaults": ([], "png"),
+         "no_gpu_camera": (["--no_gpu", "--camera", "PINHOLE"], "png"),
+         "skip_matching": (["--skip_matching"], "png"),
+         "resize": (["--resize"], "png"),
+         "resize_jpeg": (["--resize"], "jpg"),
+         "resize_jpeg_gray": (["--resize"], "jpg_gray"),
+         "resize_jpeg_comment": (["--resize", "--skip_matching"],
+                                 "jpg_comment"),
+         "resize_rgba_png": (["--resize"], "rgba_png"),
+         "resize_la_png": (["--resize"], "la_png"),
+         "resize_icc_trns_png": (["--resize"], "icc_trns_png")}
 
 
-@pytest.mark.parametrize("case", list(FLAGS))
+@pytest.mark.parametrize("case", list(CASES))
 def test_same_commands_and_tree_as_jax(tmp_path, colmap, case):
-    src_j = _source(str(tmp_path / "j"))
+    flags, fmt = CASES[case]
+    src_j = _source(str(tmp_path / "j"), fmt)
     src_t = str(tmp_path / "t")
     shutil.copytree(src_j, src_t)
-    if case == "skip_matching":
+    if "--skip_matching" in flags:
         for src in (src_j, src_t):
             os.makedirs(os.path.join(src, "distorted", "sparse", "0"))
-    cmds_j, code_j = _run(jax_convert.main, src_j, FLAGS[case], colmap)
-    cmds_t, code_t = _run(port_convert.main, src_t, FLAGS[case], colmap)
+    cmds_j, code_j = _run(jax_convert.main, src_j, flags, colmap)
+    cmds_t, code_t = _run(port_convert.main, src_t, flags, colmap)
     assert code_t == code_j == 0
     assert cmds_t == cmds_j
     assert [c[0] for c in cmds_t][-1] == "image_undistorter"
@@ -125,25 +142,53 @@ def test_same_commands_and_tree_as_jax(tmp_path, colmap, case):
     assert sorted(tree_t) == sorted(tree_j)
     for rel, want in tree_j.items():
         got = tree_t[rel]
-        if isinstance(want, np.ndarray):
-            assert got.shape == want.shape and np.array_equal(got, want), rel
+        if isinstance(want, tuple):
+            assert got[0].shape == want[0].shape, rel
+            assert np.array_equal(got[0], want[0]), rel
+            assert got[1] == want[1], rel
         else:
-            assert got == want, rel
+            assert got == want, rel          # JPEG and the rest: the bytes
     assert sorted(os.listdir(os.path.join(src_t, "sparse", "0"))) == [
         "cameras.bin", "images.bin", "points3D.bin"]
-    if case == "resize":
-        img = tree_t[os.path.join("images_4", "0.png")]
-        assert img.shape == (37 // 4, 53 // 4, 3)
+    if "--resize" in flags:
+        ext = ".jpg" if fmt.startswith("jpg") else ".png"
+        pyramid = [r for r in tree_t if r.startswith("images_")]
+        assert len(pyramid) == 9 and all(r.endswith(ext) for r in pyramid)
+        img = read_image(os.path.join(src_t, "images_4", "0" + ext))
+        assert img.shape[:2] == (37 // 4, 53 // 4)
+        if fmt == "jpg_comment":
+            assert read_image(os.path.join(src_t, "images_8", "2.jpg"),
+                              info=True)[1] == {"comment": b"view 2"}
+        if fmt == "icc_trns_png":
+            assert tree_t[os.path.join("images_2", "1.png")][1] == {
+                "icc_profile": ICC, "transparency": 7}
 
 
-def test_resize_on_a_jpeg_set_raises_before_any_command(tmp_path, colmap):
+def test_jpeg_set_without_resize_runs_the_four_commands(tmp_path, colmap):
     src = _source(str(tmp_path / "s"), fmt="jpg")
-    with pytest.raises(ValueError, match="JPEG encoder"):
-        port_convert.main(["-s", src, "--resize"])
-    assert not colmap.exists()
-    # without --resize the JPEG set converts as in JAX
     cmds, code = _run(port_convert.main, src, [], colmap)
     assert code == 0 and len(cmds) == 4
+
+
+@pytest.mark.parametrize("mode", ["RGBA", "LA"])
+def test_alpha_under_a_jpeg_name_raises_as_pillow(tmp_path, colmap, mode):
+    """An RGBA or gray+alpha PNG named .jpg: Pillow's JPEG save refuses
+    it, and so does the port, with Pillow's message, after the commands."""
+    root = str(tmp_path / mode)
+    os.makedirs(os.path.join(root, "input"))
+    img = _image(20, 24, 0)
+    img = np.dstack([img if mode == "RGBA" else img[..., 0],
+                     np.full((20, 24), 200)]).astype(np.uint8)
+    write_png(os.path.join(root, "input", "0.jpg"), img)
+    src_t = str(tmp_path / (mode + "_t"))
+    shutil.copytree(root, src_t)
+    msgs = []
+    for main, src in ((jax_convert.main, root), (port_convert.main, src_t)):
+        with pytest.raises(OSError) as err:
+            main(["-s", src, "--resize"])
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] == f"cannot write mode {mode} as JPEG"
+    assert len(colmap.read_text().splitlines()) == 8
 
 
 def test_exit_codes_match_jax(tmp_path, colmap, monkeypatch):

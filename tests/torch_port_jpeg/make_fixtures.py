@@ -20,7 +20,17 @@ the port on the CPU):
   rendered through the port's plain blend from the cameras its COLMAP
   reader makes, with `sparse/0/{cameras,images,points3D}.bin` written by
   the port's `colmap_loader` writers (PINHOLE; 2,000 of the scene's points
-  as the initial cloud).
+  as the initial cloud);
+- the JPEG encoder's and `convert --resize`'s references, all written by
+  Pillow, which chip_smoke.py phase 4n and the CPU tests hold the port to:
+    encode/render_420_q75.jpg: the pixels of render_420.png saved with
+      Pillow's default JPEG encode (quality 75, 4:2:0);
+    colmap_pyramid/images_{2,4,8}/0.jpg .. 5.jpg: the JAX `convert.py`
+      pyramid of colmap/images/ (`Image.resize` to size // d, then
+      `save`): 18 files at 80x60, 40x30 and 20x15;
+    rgba/input/0.png .. 2.png: three RGBA images (97x73, 64x48, 33x129;
+      alpha 0, 255 and values between), and rgba/images_{2,4,8}/: their
+      Pillow pyramid (premultiplied alpha).
 """
 from __future__ import annotations
 
@@ -125,6 +135,44 @@ def write_colmap_set(root, state, bg):
         (cols[np.sort(keep)] * 255).round().astype(np.uint8))
 
 
+PYRAMID = (2, 4, 8)
+RGBA_SIZES = ((73, 97), (48, 64), (129, 33))     # height, width
+
+
+def _pillow_pyramid(src_dir, out_root):
+    """convert.py's --resize: each image of src_dir resized to size // d
+    and saved under its name into out_root/images_d/."""
+    from PIL import Image
+    for div in PYRAMID:
+        out = os.path.join(out_root, f"images_{div}")
+        os.makedirs(out, exist_ok=True)
+        for name in sorted(os.listdir(src_dir)):
+            im = Image.open(os.path.join(src_dir, name))
+            im.resize((im.width // div, im.height // div)).save(
+                os.path.join(out, name))
+
+
+def write_encoder_fixtures():
+    from PIL import Image
+    os.makedirs(os.path.join(HERE, "encode"), exist_ok=True)
+    Image.open(os.path.join(HERE, "render_420.png")).save(
+        os.path.join(HERE, "encode", "render_420_q75.jpg"))
+    _pillow_pyramid(os.path.join(HERE, "colmap", "images"),
+                    os.path.join(HERE, "colmap_pyramid"))
+    rgba_in = os.path.join(HERE, "rgba", "input")
+    os.makedirs(rgba_in, exist_ok=True)
+    rng = np.random.default_rng(5)
+    for k, (h, w) in enumerate(RGBA_SIZES):
+        img = _pattern(h, w, 10 + k)
+        yy, xx = np.mgrid[0:h, 0:w]
+        alpha = np.clip(255 * (1.5 - np.hypot(yy / h - 0.5, xx / w - 0.5)
+                               * 3), 0, 255).astype(np.uint8)
+        alpha[rng.random((h, w)) < 0.05] = 3
+        Image.fromarray(np.dstack([img, alpha]), "RGBA").save(
+            os.path.join(rgba_in, f"{k}.png"), optimize=True)
+    _pillow_pyramid(rgba_in, os.path.join(HERE, "rgba"))
+
+
 def main():
     import torch
     import chip_smoke
@@ -150,6 +198,7 @@ def main():
                                 ((1, 2), (1, 1), (1, 1))))
     _save_reference("sampling_440")
     write_colmap_set(os.path.join(HERE, "colmap"), state, bg)
+    write_encoder_fixtures()
 
 
 if __name__ == "__main__":
