@@ -112,6 +112,18 @@ Phases (any failure exits non-zero):
          set rewritten as 16-bit RGBA frames, half of them Adam7, loaded
          equal to the 8-bit set and trained by the baseline CLI for 50
          iterations with the blend launches counted;
+     4o. `d3gs_tpu_torch.bench.main([])` in-process at bench.py's
+         configuration (train step, render, flagship step at k = 10), the
+         blend launches counted, its JSON line printed and checked (every
+         key of bench.py's line positive, dup_total under the budget);
+     4p. tight_cull: (a) the bench frame and 4b's checkpoint rendered with
+         and without the cull, M each way, images and gradients held to
+         each other (flipped pixels counted, none allowed), both blend
+         kernels alone on the culled bins against their plain versions and
+         timed beside the uncut bins; (b) the bench frame in 2 and 4 culled
+         strips (`parallel/sharded.py::blend_strip`) against the whole
+         frame; (c) the baseline CLI with `--tight_cull` for 50 iterations
+         on 4b's set, the launches counted and every binning watched;
   5. timings at the bench shape (CUDA events, torch.profiler): the render
      stages and the frame, the train step and its layers, both blend
      kernels alone (CUDA events and profiler device time) on the bench
@@ -3217,6 +3229,313 @@ def encode_convert_png16_path(dev, data, root) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 4o: d3gs_tpu_torch/bench.py; 4p: tight_cull
+# --------------------------------------------------------------------------
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "train_step_ms",
+              "render_only_mrays", "render_only_fps", "render_vs_baseline",
+              "flagship_ms_per_cam_k10")   # bench.py:203-219
+NEAR_ALPHA = 1e-5                # 4p: relative distance of a tile-max alpha
+#                                  from 1/255 that could flip a pixel
+FLIPS_ALLOWED = 0                # 4p: pixels the cull may change
+CULL_ITERATIONS = 50             # 4p-d: the baseline CLI with --tight_cull
+CULL_WARM_UP = 25
+
+
+def bench_launches(bench) -> dict:
+    """The blend launches `bench.main` makes: a warm-up and two timed runs
+    of each loop length, the train step one forward and one backward, a
+    frame one forward, a flagship step k of each, and the budget check's
+    k + 1 frames."""
+    runs = {name: 3 * sum(n) for name, n in bench.LOOPS.items()}
+    return {"blend_fwd": runs["train"] + runs["render"]
+            + bench.K * runs["flagship"] + bench.K + 1,
+            "blend_bwd": runs["train"] + bench.K * runs["flagship"]}
+
+
+BENCH_CARRIED_STEPS = 6          # 4o: train steps of the carried loop
+BENCH_UNCAPPED = 10 ** 7         # 4o: a budget the carried loop may reach
+
+
+def bench_frames(dev) -> dict:
+    """Phase 4o, before the bench: M of the bench frame and of the ten
+    flagship frames at the initial state (the numbers its budget rests on),
+    and M along BENCH_CARRIED_STEPS train steps that carry their state, as
+    bench.py's loop does, under a budget of BENCH_UNCAPPED."""
+    from d3gs_tpu_torch import bench
+    b = bench.build(dev, dup_capacity=BENCH_UNCAPPED)
+    out = {"bench_frame": bench.frame_dups(b, b.field, b.cam),
+           "flagship_frames": [bench.frame_dups(b, b.ffield, c)
+                               for c in b.cams]}
+    bg = torch.zeros(3, device=dev)
+    st, dst, carried = b.state, b.field.init_state(), []
+    for i in range(BENCH_CARRIED_STEPS):
+        st, dst, aux = b.step(st, dst, b.cam, bench.ITERATION0 + i, None,
+                              bg)
+        carried.append(int(aux.dup_total))
+    out["carried_train_steps"] = carried
+    log(f"[4o] M at the initial state and along a carried train loop: "
+        f"{json.dumps(out)} (budget {bench.budget(bench.DUP_CAPACITY)})")
+    return out
+
+
+def bench_path(dev) -> dict:
+    """Phase 4o: `bench_frames`, then `d3gs_tpu_torch.bench.main([])`
+    in-process at bench.py's configuration, the blend launches counted
+    around it; its one JSON line must carry every key of bench.py's line,
+    positive, plus device, power_limit and a dup_total under the budget."""
+    import contextlib
+    import io
+    from d3gs_tpu_torch import bench
+    from d3gs_tpu_torch.ops import blend as B
+    frames = bench_frames(dev)
+    buf = io.StringIO()
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    torch.cuda.synchronize()
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    log(f"[4o] bench.main -> {rc} in {seconds:.1f} s, blend launches "
+        f"{launches} (expected {bench_launches(bench)}); its line:")
+    for line in lines:
+        print(line, flush=True)
+    out = json.loads(lines[-1]) if lines else {}
+    numbers = [out.get(k) for k in BENCH_KEYS if k not in ("metric", "unit")]
+    if not (rc == 0 and len(lines) == 1 and "error" not in out
+            and all(k in out for k in BENCH_KEYS + ("device", "power_limit",
+                                                    "dup_total"))
+            and all(isinstance(v, (int, float)) and v > 0 for v in numbers)
+            and 0 < out["dup_total"] < bench.budget(bench.DUP_CAPACITY)
+            and launches == bench_launches(bench)):
+        raise AssertionError(f"4o: rc {rc}, {lines}, launches {launches}")
+    return {"line": out, "launches": launches, "seconds": seconds,
+            "frames": frames}
+
+
+def near_threshold_tiles(splats, bins, tiles_x: int) -> torch.Tensor:
+    """(T,) bool: the tiles of `bins` (unculled) holding a duplicate whose
+    largest alpha over the tile lies within NEAR_ALPHA (relative) of
+    1/255, the only duplicates whose cull could flip a pixel."""
+    from d3gs_tpu_torch.ops.binning import tile_max_power
+    starts = bins.starts.long()
+    num_tiles = starts.shape[0] - 1
+    gid = bins.order.long()[bins.rank_sorted.long()][:int(starts[-1])]
+    tile = torch.repeat_interleave(
+        torch.arange(num_tiles, device=gid.device), starts[1:] - starts[:-1])
+    mu, con = splats.means2d[gid], splats.conics[gid]
+    pmax = tile_max_power(mu[:, 0], mu[:, 1], con[:, 0], con[:, 1],
+                          con[:, 2], (tile % tiles_x).float(),
+                          (tile // tiles_x).float())
+    alpha = splats.opacities[gid] * torch.exp(pmax)
+    near = torch.zeros(num_tiles, dtype=torch.bool, device=gid.device)
+    near[tile[(alpha * 255.0 - 1.0).abs() <= NEAR_ALPHA]] = True
+    return near
+
+
+def cull_render_pair(tag, state, cam, field, bg) -> dict:
+    """Phase 4p-a: `render` (models/renderer.py) of `state` at `cam` (the
+    MLP field's deformation at cam.fid) with and without tight_cull, and
+    the gradients of sum (image - 0.5)² + 0.01 sum depth + 0.02 sum alpha
+    with respect to the six parameters: M each way, the images, depths and
+    alphas at ATOL / RTOL, the gradients within BWD_TOL['bench'] of the
+    largest; pixels outside the bounds are counted (those in a tile with a
+    duplicate at the threshold apart), at most FLIPS_ALLOWED. Then both
+    kernels alone on the culled bins against their plain versions
+    (phase 3's bounds) and timed beside the unculled bins."""
+    import dataclasses
+    from d3gs_tpu_torch.models import gaussians as G
+    from d3gs_tpu_torch.models.renderer import project_splats, render
+    from d3gs_tpu_torch.ops.binning import bin_splats_records
+    from d3gs_tpu_torch.ops.rasterize import pack_records
+    with torch.no_grad():
+        dx, dr, ds = field.step(state.params.xyz, cam.fid)
+    outs, grads = {}, {}
+    for cull in (False, True):
+        params = G.GaussianParams(*(p.detach().requires_grad_()
+                                    for p in state.params))
+        st = dataclasses.replace(state, params=params)
+        out = render(st, cam, d_xyz=dx, d_rotation=dr, d_scaling=ds, bg=bg,
+                     tight_cull=cull)
+        loss = ((out.image - 0.5) ** 2).sum() + 0.01 * out.depth.sum() \
+            + 0.02 * out.alpha.sum()
+        grads[cull] = torch.autograd.grad(loss, list(params),
+                                          allow_unused=True,
+                                          materialize_grads=True)
+        outs[cull] = out
+    on, off = outs[True], outs[False]
+    bad = torch.zeros((cam.height, cam.width), dtype=torch.bool,
+                      device=bg.device)
+    field_err = {}
+    for name in ("image", "depth", "alpha"):
+        a, b = getattr(on, name).detach(), getattr(off, name).detach()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"4p {tag}: non-finite culled {name}")
+        far = (a - b).abs() > ATOL + RTOL * b.abs()
+        bad |= far.any(-1) if far.ndim == 3 else far
+        field_err[name] = float((a - b).abs().max())
+    tiles_x = (cam.width + 15) // 16
+    tiles_y = (cam.height + 15) // 16
+    with torch.no_grad():
+        splats = project_splats(state, cam, d_xyz=dx, d_rotation=dr,
+                                d_scaling=ds)
+        bins = {c: bin_splats_records(splats, tiles_x=tiles_x,
+                                      tiles_y=tiles_y, tight_cull=c)
+                for c in (False, True)}
+        records = pack_records(splats)
+    near = near_threshold_tiles(splats, bins[False], tiles_x).reshape(
+        tiles_y, tiles_x).repeat_interleave(16, 0).repeat_interleave(
+        16, 1)[:cam.height, :cam.width]
+    flips = {"outside_bounds": int(bad.sum()),
+             "near_threshold": int((bad & near).sum())}
+    grad_err = {}
+    for name, a, b in zip(G.GaussianParams._fields, grads[True],
+                          grads[False]):
+        scale = float(b.abs().max())
+        grad_err[name] = float((a - b).abs().max()) / scale if scale else \
+            float(a.abs().max())
+    m = {c: int(bins[c].starts[-1]) for c in (False, True)}
+    grid = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=cam.width,
+                height=cam.height)
+    name = f"4p {tag} culled bins"
+    errs = (compare_blend(name, records, bins[True], bg, grid),
+            compare_blend_bwd(name, records, bins[True], bg, grid,
+                              BWD_TOL["bench"]))
+    times = {("culled" if c else "uncut"): blend_kernel_times(
+        records, bins[c], bg, grid) for c in (False, True)}
+    out = {"M_uncut": m[False], "M_culled": m[True],
+           "M_culled_share": m[True] / m[False], "max_abs_on_vs_off":
+           field_err, "grads_of_largest": grad_err, "flips": flips,
+           "kernels_vs_plain_on_culled_bins": errs, "kernels": times}
+    log(f"[4p-a] {tag}: {json.dumps(out)}")
+    if (flips["outside_bounds"] > FLIPS_ALLOWED
+            or max(grad_err.values()) > BWD_TOL["bench"]
+            or not m[True] < m[False] or int(on.counts.sum()) != m[True]):
+        raise AssertionError(f"4p {tag}: culled and uncut renders differ: "
+                             f"{out}")
+    return out
+
+
+def cull_strips(state, cam, field, bg) -> dict:
+    """Phase 4p-b: the bench frame cut into 2 and 4 strips of tile rows,
+    each binned with tight_cull and blended by
+    `parallel/sharded.py::blend_strip` at its tile_y0 (the kernels, as the
+    sharded steps run them), the strips' images against the whole uncut
+    frame's (ATOL) and the record gradients of the loss of
+    `blend_loss_grads` summed over the strips against the whole frame's
+    (BWD_TOL['bench'] of the largest)."""
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops.binning import bin_splats_records
+    from d3gs_tpu_torch.ops.rasterize import pack_records_full
+    from d3gs_tpu_torch.parallel.sharded import StripGrid, blend_strip
+    splats = stage_splats(state, cam, field)
+    records = pack_records_full(splats)
+    tiles = (WIDTH + 15) // 16
+    grid = dict(tiles_x=tiles, tiles_y=tiles, width=WIDTH, height=HEIGHT)
+    bins = bin_splats_records(splats, tiles_x=tiles, tiles_y=tiles)
+    rec = records.clone().requires_grad_()
+    img, dep, alp = B.blend_records(rec, bins, bg, **grid)
+    loss = lambda i, d, a: ((i - 0.5) ** 2).sum() + 0.01 * d.sum() \
+        + 0.02 * a.sum()  # noqa: E731
+    (g_full,) = torch.autograd.grad(loss(img, dep, alp), [rec])
+    out = {}
+    for d in STRIP_MESHES:
+        rows = -(-tiles // d)
+        rec = records.clone().requires_grad_()
+        parts, m = [], 0
+        for s in range(d):
+            g = StripGrid(tiles_x=tiles, tiles_y=rows, strip_h=rows * 16,
+                          tile_y0=s * rows)
+            i, dp, a, counts = blend_strip(rec, bg, g, width=WIDTH,
+                                           depth_grad=True, tight_cull=True)
+            parts.append((i, dp, a))
+            m += int(counts.sum())
+        si, sd, sa = (torch.cat(x)[:HEIGHT] for x in zip(*parts))
+        (g_strips,) = torch.autograd.grad(loss(si, sd, sa), [rec])
+        err = lambda a, b: float((a - b).detach().abs().max())  # noqa: E731
+        errs = {"image": err(si, img), "depth": err(sd, dep),
+                "alpha": err(sa, alp),
+                "grads_of_largest": float((g_strips - g_full).abs().max()
+                                          / g_full.abs().max())}
+        out[d] = {"M_culled": m, "M_uncut_frame": int(bins.starts[-1]),
+                  **errs}
+        log(f"[4p-b] {d} culled strips vs the uncut frame: {out[d]}")
+        if not (errs["image"] <= ATOL and errs["alpha"] <= ATOL
+                and errs["grads_of_largest"] <= BWD_TOL["bench"]
+                and m < int(bins.starts[-1])):
+            raise AssertionError(f"4p-b: culled strips differ: {out[d]}")
+    return out
+
+
+def cull_cli_path(data, root) -> dict:
+    """Phase 4p-c: `python -m d3gs_tpu_torch.train ... --tight_cull` (the
+    baseline trainer) for CULL_ITERATIONS on 4b's set, the blend launches
+    counted and the renderer's binnings watched: every one must cull, at
+    least CULL_ITERATIONS + 1 forward launches and CULL_ITERATIONS
+    backward, the last logged loss below the first."""
+    from d3gs_tpu_torch.models import renderer
+    from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.train.__main__ import main as train_main
+    binned = {True: 0, False: 0}
+    real = renderer.bin_splats_records
+
+    def watch(*args, tight_cull=False, **kw):
+        binned[tight_cull] += 1
+        return real(*args, tight_cull=tight_cull, **kw)
+    it = CULL_ITERATIONS
+    renderer.bin_splats_records = watch
+    B.launches = B.launches_bwd = 0
+    t0 = time.perf_counter()
+    try:
+        result = train_main([
+            "-s", data, "-m", os.path.join(root, "cull_model"), "--eval",
+            "--is_blender", "--quiet", "--tight_cull", "--iterations",
+            str(it), "--warm_up", str(CULL_WARM_UP), "--test_iterations",
+            str(it), "--save_iterations", str(it)])
+        torch.cuda.synchronize()
+    finally:
+        renderer.bin_splats_records = real
+    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    losses = [v for _, v in result.losses]
+    out = {"launches": launches, "binnings_culled": binned[True],
+           "binnings_uncut": binned[False], "losses": result.losses,
+           "psnr": result.test_psnrs, "train_s": time.perf_counter() - t0}
+    log(f"[4p-c] train --tight_cull: {json.dumps(out)}")
+    if not (len(losses) >= 2 and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0] and launches["blend_bwd"] >= it
+            and launches["blend_fwd"] >= it + 1 and binned[True] >= it + 1
+            and binned[False] == 0):
+        raise AssertionError(f"4p-c: {out}")
+    return out
+
+
+def tight_cull_path(dev, state, cam, field, data, trained) -> dict:
+    """Phase 4p: a-c above on the bench frame and 4b's checkpoint."""
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch.data.scene import Scene
+    from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
+                                                     load_deform_weights)
+    from d3gs_tpu_torch.train.flagship import pick_field_spec
+    t0 = time.perf_counter()
+    bg = torch.zeros(3, device=dev)
+    out = {"bench_frame": cull_render_pair("bench frame", state, cam, field,
+                                           bg)}
+    cfg = C.ModelParams(**C.load_cfg_args(trained))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
+    fld = load_deform_weights(trained, create_deform_field(
+        pick_field_spec(cfg, C.OptimizationParams()), device=dev))
+    out["checkpoint"] = cull_render_pair(
+        "4b checkpoint, test view 0", scene.gaussians,
+        scene.get_test_cameras()[0], fld, bg)
+    out["strips"] = cull_strips(state, cam, field, bg)
+    out["cli"] = cull_cli_path(data, os.path.dirname(trained))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[4p] took {out['seconds']:.1f} s; {nvidia_smi()}")
+    return out
+
+
 def blend_kernel_times(records, bins, bg, grid) -> dict:
     """Phase 5: both blend kernels alone on one scene, launched into
     preallocated outputs (so the wrappers' host work, checks and
@@ -3779,6 +4098,11 @@ def main() -> int:
             "point_cloud.ply"))
         # ---- 4n. JPEG encoding, convert --resize, 16-bit PNG frames -----
         png16 = encode_convert_png16_path(dev, data, tmp)
+        # ---- 4o. d3gs_tpu_torch/bench.py --------------------------------
+        bench_run = bench_path(dev)
+        # ---- 4p. tight_cull ---------------------------------------------
+        cull = tight_cull_path(dev, state, cam, field, data,
+                               os.path.join(tmp, "trained"))
     log(f"[4] kernel launches by path: render {render_result['launches']}, "
         f"train {train_launches}, tools {tool_launches}, flagship "
         f"{launches}, adaptive flagship {adaptive['launches']}, "
@@ -3791,7 +4115,8 @@ def main() -> int:
         f"{json.dumps(mesh['gloo']['launches'])}, mesh CLI "
         f"{json.dumps({m: r['launches'] for m, r in mesh['cli'].items()})}, "
         f"COLMAP JPEG set {jpeg_ptv3['colmap']['launches']}, 16-bit PNG "
-        f"set {png16['png16']['launches']}")
+        f"set {png16['png16']['launches']}, bench {bench_run['launches']}, "
+        f"--tight_cull CLI {cull['cli']['launches']}")
 
     # ---- 5. timings at the bench shape ------------------------------------
     t, prof, work = render_timings(state, field, cam, bg, records, bins,

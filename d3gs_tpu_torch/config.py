@@ -58,9 +58,12 @@ class ModelParams:
 class PipelineParams:
     """Render-path toggles (reference PipelineParams:82-87).
 
-    `binning` and `tight_cull` select among the JAX package's blend paths;
-    the port has one (record binning + the tile-blend kernel), so anything
-    but the defaults raises."""
+    `binning` selects among the JAX package's blend paths; the port has
+    one (record binning + the tile-blend kernel), so anything but `auto`
+    raises. `tight_cull` drops, in the binning, every (tile, Gaussian)
+    duplicate whose largest alpha over the tile stays under 1/255
+    (`ops/binning.py::tile_max_power`): the output is the same, the blend
+    kernels walk fewer records."""
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
@@ -70,7 +73,7 @@ class PipelineParams:
     bin_chunk: int = 2048
     binning: str = "auto"
     dup_capacity: int = 0           # duplicate budget (0 = 16N)
-    tight_cull: bool = False
+    tight_cull: bool = False        # exact tile cull of the duplicates
     capacity: int = 0               # padded gaussian buffer (0 = auto)
     antialias: bool = False         # filter-norm style opacity compensation
     mesh_shape: str = ""            # multi-GPU: "D" or "CxS" (torchrun)
@@ -84,9 +87,6 @@ class PipelineParams:
             raise ValueError(
                 f"binning={self.binning!r}: the torch port has one blend path "
                 "(record binning + the CUDA tile blend); use 'auto'")
-        if self.tight_cull:
-            raise NotImplementedError(
-                "tight_cull is not ported (ROADMAP.md, Queue 1)")
 
 
 @dataclass

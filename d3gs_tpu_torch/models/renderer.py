@@ -8,7 +8,9 @@ direct (`direct_compute`: d_xyz are absolute positions, the ODE path) and
 6DoF (`is_6dof`: d_xyz is a per-Gaussian (N, 4, 4) SE(3) applied to the
 canonical means).
 SH→RGB happens here per view direction. Then projection, binning, record
-packing and the tile blend (the CUDA kernels on the card). The whole path is
+packing and the tile blend (the CUDA kernels on the card); `tight_cull`
+drops, in the binning, the duplicates no pixel of their tile includes. The
+whole path is
 differentiable except the binning, which runs without autograd on the
 detached splats (JAX's stop_gradient). `means2d_tap`, a zeros (C, 2) tensor
 added to the projected centres, receives dL/dmean2d in pixel units: the
@@ -97,6 +99,7 @@ def render(
     bg: torch.Tensor | None = None,
     antialias: bool = False,
     dup_capacity: int = 0,
+    tight_cull: bool = False,
     means2d_tap: Optional[torch.Tensor] = None,
     depth_grad: bool = True,
 ) -> RenderOutput:
@@ -112,7 +115,8 @@ def render(
     tiles_y = (height + TILE - 1) // TILE
     with torch.no_grad():
         bins = bin_splats_records(splats, tiles_x=tiles_x, tiles_y=tiles_y,
-                                  dup_capacity=dup_capacity)
+                                  dup_capacity=dup_capacity,
+                                  tight_cull=tight_cull)
     image, depth, alpha = blend_records(
         pack_records(splats), bins, bg, tiles_x=tiles_x, tiles_y=tiles_y,
         width=width, height=height, depth_grad=depth_grad)

@@ -68,14 +68,16 @@ def strip_grid(width: int, height: int, mesh: Mesh) -> StripGrid:
 
 
 def blend_strip(records: torch.Tensor, bg: torch.Tensor, grid: StripGrid, *,
-                width: int, dup_capacity: int = 0, depth_grad: bool = True):
+                width: int, dup_capacity: int = 0, depth_grad: bool = True,
+                tight_cull: bool = False):
     """Bin and blend this rank's strip from the gathered (N, 16) records of
-    `pack_records_full` -> (image (strip_h, W, 3), depth, alpha, counts)."""
+    `pack_records_full` -> (image (strip_h, W, 3), depth, alpha, counts).
+    The records carry the means, conics and opacity `tight_cull` reads."""
     with torch.no_grad():
         bins = bin_splats_records(
             unpack_records_full(records.detach()), tiles_x=grid.tiles_x,
             tiles_y=grid.tiles_y, dup_capacity=dup_capacity,
-            tile_y0=grid.tile_y0)
+            tile_y0=grid.tile_y0, tight_cull=tight_cull)
     img, dep, alp = blend_records(
         records, bins, bg, tiles_x=grid.tiles_x, tiles_y=grid.tiles_y,
         width=width, height=grid.strip_h, depth_grad=depth_grad,
@@ -96,7 +98,7 @@ def make_frame_fn(mesh: Mesh, *, width: int, height: int, pipe_cfg):
         img, dep, alp, counts = blend_strip(
             records, bg, grid, width=width,
             dup_capacity=pipe_cfg.dup_capacity,
-            depth_grad=pipe_cfg.depth_grad)
+            depth_grad=pipe_cfg.depth_grad, tight_cull=pipe_cfg.tight_cull)
         strip = torch.cat([img, dep[..., None], alp[..., None]], dim=-1)
         frame = comm.gather_replicated(strip, mesh.shard_group)[:height]
         return frame[..., :3], frame[..., 3], frame[..., 4], counts
@@ -328,7 +330,8 @@ def make_flagship_gauss_tile_step(
             img, _, _, counts = blend_strip(
                 records, bg, grid, width=width,
                 dup_capacity=pipe_cfg.dup_capacity,
-                depth_grad=pipe_cfg.depth_grad)
+                depth_grad=pipe_cfg.depth_grad,
+                tight_cull=pipe_cfg.tight_cull)
             imgs.append(img)
             radii = splats.radii if radii is None else torch.maximum(
                 radii, splats.radii)

@@ -116,6 +116,9 @@ def make_batched_loss_and_grads(*, opt_cfg, pipe_cfg, model_cfg, field,
                 dx, dr, ds = (s[i] for s in staged)
             else:
                 dx, dr, ds = 0.0, 0.0, 0.0
+            # no tight_cull here, as in the JAX trainer's training render
+            # (its eval render, `make_eval_render`, takes it); the cull is
+            # output-exact, so the results agree either way
             out = render(st, cam, d_xyz=dx, d_rotation=dr, d_scaling=ds,
                          is_6dof=model_cfg.is_6dof, direct_compute=direct,
                          bg=bg, means2d_tap=tap,

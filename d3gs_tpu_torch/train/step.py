@@ -74,6 +74,7 @@ def make_loss_and_grads(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
         out = render(st, camera,
                      d_xyz=dx, d_rotation=dr, d_scaling=ds, is_6dof=is_6dof,
                      bg=bg, means2d_tap=tap, dup_capacity=pipe_cfg.dup_capacity,
+                     tight_cull=pipe_cfg.tight_cull,
                      antialias=pipe_cfg.antialias, depth_grad=depth_grad)
         ll1 = l1_loss(out.image, camera.image)
         loss = (1.0 - lam) * ll1 + lam * (1.0 - ssim(out.image, camera.image))
@@ -146,6 +147,7 @@ def make_eval_render(*, pipe_cfg, is_6dof: bool = False,
         return render(state, camera, d_xyz=dx, d_rotation=dr, d_scaling=ds,
                       is_6dof=is_6dof, direct_compute=direct_compute,
                       bg=bg, dup_capacity=pipe_cfg.dup_capacity,
+                      tight_cull=pipe_cfg.tight_cull,
                       antialias=pipe_cfg.antialias)
 
     return eval_render

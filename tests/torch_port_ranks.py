@@ -78,9 +78,10 @@ def _gather_rows(x, mesh):
     return comm.all_gather(x.detach(), mesh.shard_group).numpy()
 
 
-def task_render(mesh, *, state, cam, colors, bg, size):
+def task_render(mesh, *, state, cam, colors, bg, size, pipe=None):
     """The sharded render of `state` (all rows; sharded here) and the
-    gradient of Σ image² with respect to the means."""
+    gradient of Σ image² with respect to the means; `pipe`: more
+    PipelineParams fields."""
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch.parallel import mesh as M
     from d3gs_tpu_torch.parallel.sharded import make_sharded_render
@@ -90,7 +91,8 @@ def task_render(mesh, *, state, cam, colors, bg, size):
     r0 = mesh.shard_rank * rows
     col = torch.from_numpy(colors)[r0:r0 + rows]
     render_fn = make_sharded_render(mesh, width=size, height=size,
-                                    pipe_cfg=C.PipelineParams(depth_grad=True))
+                                    pipe_cfg=C.PipelineParams(
+                                        depth_grad=True, **(pipe or {})))
     xyz = st.params.xyz.clone().requires_grad_()
     img, dep, alp, radii, counts = render_fn(
         xyz, st.get_scaling, st.params.rotation, col, st.get_opacity[:, 0],
@@ -131,14 +133,15 @@ def task_baseline_step(mesh, *, state, cam, field, opt, size, iteration):
 
 
 def task_flagship_step(mesh, *, layout, state, cams, field, opt, model, size,
-                       iteration, wts=None):
-    """One flagship step of the camera-parallel or gauss+tile layout."""
+                       iteration, wts=None, pipe=None):
+    """One flagship step of the camera-parallel or gauss+tile layout;
+    `pipe`: PipelineParams fields."""
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch.parallel import mesh as M
     from d3gs_tpu_torch.parallel import sharded as S
     fld = make_field(**field)
     kw = dict(opt_cfg=C.OptimizationParams(**opt),
-              pipe_cfg=C.PipelineParams(),
+              pipe_cfg=C.PipelineParams(**(pipe or {})),
               model_cfg=C.ModelParams(**model), field=fld)
     st = state_from_numpy(state)
     if layout == "camera":
