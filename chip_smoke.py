@@ -1083,11 +1083,11 @@ def render_main_path(dev, data, mp) -> dict:
     C.save_cfg_args(mp, C.ModelParams(source_path=data, model_path=mp,
                                       eval=True, is_blender=True,
                                       sh_degree=3, D=8, W=256))
-    B.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = R.main(["-m", mp, "--mode", "render", "--benchmark"])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches}
+    launches = {"blend_fwd": B.launch_counts()["blend_fwd"]}
     result["launches"] = launches
     log(f"[4] render.main: {result} in {time.perf_counter() - t0:.1f} s; "
         f"kernel launches {launches}")
@@ -1180,7 +1180,7 @@ def train_main_path(dev, data, mp) -> dict:
                          np.round(cols * 255))
     it = TRAIN_ITERATIONS
     n_eval = 2 * 2
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     with WatchHostEvents() as events, EmptyViewWatch() as views:
         result = train_main([
@@ -1198,7 +1198,7 @@ def train_main_path(dev, data, mp) -> dict:
             "--sequence_length", "4"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     log(f"[4b] train.main: {it} iterations in {wall:.1f} s; "
         f"kernel launches {launches}; losses {result.losses}; PSNR "
         f"{result.test_psnrs}; densify (iteration, alive, capacity before, "
@@ -1327,14 +1327,13 @@ def tool_paths() -> dict:
     for kernel, tool in (("row_copy", exp_r5_reduce),
                          ("row_gather", exp_vmem_gather),
                          ("scatter_add_rows", exp_vmem_scatter)):
-        for k in R.launches:
-            R.launches[k] = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = tool.main(["--reps", "10"])
         torch.cuda.synchronize()
-        launches[kernel] = R.launches[kernel]
+        launches[kernel] = R.launch_counts()[kernel]
         log(f"[4c] {tool.__name__}.main: {time.perf_counter() - t0:.1f} s, "
-            f"launches {dict(R.launches)}; {json.dumps(out)}")
+            f"launches {R.launch_counts()}; {json.dumps(out)}")
         if launches[kernel] == 0:
             raise AssertionError(f"{tool.__name__} did not launch {kernel}")
         if tool is exp_r5_reduce:
@@ -1374,7 +1373,7 @@ def flagship_main_path(dev, data, mp) -> dict:
                          np.round(cols * 255))
     it, k = FLAGSHIP_ITERATIONS, FLAGSHIP_K
     n_train, n_test = FLAGSHIP_VIEWS
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = train_main([
         "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
@@ -1388,7 +1387,7 @@ def flagship_main_path(dev, data, mp) -> dict:
         "--test_iterations", str(it), "--save_iterations", str(it)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     log(f"[4d] train.main --trainer flagship: {it} iterations x {k} cameras "
         f"in {wall:.1f} s; kernel launches {launches}; losses "
         f"{result.losses}; PSNR {result.test_psnrs}; densify "
@@ -1442,12 +1441,20 @@ def flagship_main_path(dev, data, mp) -> dict:
     return launches, result.losses[0][1]
 
 
+def reset_counts() -> None:
+    """Zero the port's counters (`d3gs_tpu_torch.tracing`), the adaptive
+    solver's among them."""
+    from d3gs_tpu_torch import tracing
+    tracing.drain()
+
+
 def ode_counts() -> dict:
     """The adaptive solver's counts since the last reset, forward and
     backward."""
     import dataclasses
     from d3gs_tpu_torch.models.deform import ode as O
-    return {k: dataclasses.asdict(v) for k, v in O.COUNTS.items()}
+    return {d: dataclasses.asdict(O.solve_counts(d))
+            for d in ("forward", "backward")}
 
 
 def per_step(counts: dict, steps: int) -> dict:
@@ -1465,11 +1472,10 @@ def check_checkpoint_render(dev, mp, it, n_views, tag):
     from d3gs_tpu_torch.data.scene import Scene
     from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
                                                      load_deform_weights)
-    from d3gs_tpu_torch.models.deform import ode as O
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.train.flagship import pick_field_spec
     t0 = time.perf_counter()
-    O.reset_counts()
+    reset_counts()
     out = R.main(["-m", mp, "--mode", "render"])
     torch.cuda.synchronize()
     counts = ode_counts()
@@ -1507,13 +1513,11 @@ def adaptive_flagship_path(dev, data, mp, *, kind_flag, iterations, warm_up,
     evaluation and a checkpoint, whose render is held against the plain
     blend. Reads the blend kernels' counts and the solver's around the
     trainer."""
-    from d3gs_tpu_torch.models.deform import ode as O
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.train.__main__ import main as train_main
     it, k = iterations, FLAGSHIP_K
     n_train, n_test = FLAGSHIP_VIEWS
-    B.launches = B.launches_bwd = 0
-    O.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     result = train_main([
         "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
@@ -1525,7 +1529,7 @@ def adaptive_flagship_path(dev, data, mp, *, kind_flag, iterations, warm_up,
         "--save_iterations", str(it)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     counts = ode_counts()
     deform_steps = it - warm_up + 1
     log(f"[{tag}] train.main --trainer flagship {kind_flag} --ode_solver "
@@ -1564,12 +1568,10 @@ def distill_path(dev, data, teacher, mp) -> dict:
     8x256 Blender ODE student with the adaptive solver, 5 iterations and a
     PSNR evaluation at 5; every trajectory loss below
     DISTILL_LOSS_BOUND."""
-    from d3gs_tpu_torch.models.deform import ode as O
     from d3gs_tpu_torch.ops import blend as B
     from d3gs_tpu_torch.train_synth_gau import main as distill_main
     n_test = FLAGSHIP_VIEWS[1]
-    B.launches = B.launches_bwd = 0
-    O.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     result = distill_main([
         "-s", data, "-m", mp, "--base_model_path", teacher, "--eval",
@@ -1579,7 +1581,7 @@ def distill_path(dev, data, teacher, mp) -> dict:
         "--test_iterations", str(DISTILL_ITERATIONS), "--quiet"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     counts = ode_counts()
     log(f"[4g] train_synth_gau.main: {DISTILL_ITERATIONS} iterations on "
         f"{result.state.num_alive} teacher Gaussians in {wall:.1f} s; kernel "
@@ -1612,7 +1614,6 @@ def synth_paths(dev, out_dir) -> dict:
     card against the same call on the CPU, in this process."""
     from d3gs_tpu_torch import render_synth_ode, train_synth_ode
     from d3gs_tpu_torch.models.deform import fields as F
-    from d3gs_tpu_torch.models.deform import ode as O
     t0 = time.perf_counter()
     mse = train_synth_ode.main(["--out", out_dir, "--iterations",
                                 str(SYNTH_ITERATIONS)])
@@ -1638,7 +1639,7 @@ def synth_paths(dev, out_dir) -> dict:
     for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
         field = F.create_deform_field(spec, seed=3, device=where)
         y = torch.from_numpy(y0).to(where).requires_grad_()
-        O.reset_counts()
+        reset_counts()
         t1 = time.perf_counter()
         ys = field.step_multi(y, torch.from_numpy(ts).to(where), y0=y)[0]
         grads = torch.autograd.grad(
@@ -1675,7 +1676,7 @@ def bf16_path(dev, data, mp) -> dict:
     from d3gs_tpu_torch.tools import exp_r5_mlp
     from d3gs_tpu_torch.train.__main__ import main as train_main
     it = BF16_ITERATIONS
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = train_main([
         "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
@@ -1683,7 +1684,7 @@ def bf16_path(dev, data, mp) -> dict:
         "--warm_up", "4", "--sh_degree", "3", "--test_iterations", str(it),
         "--save_iterations", str(it), "--sequence_length", "4"])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     log(f"[4i] train.main --deform_dtype bfloat16: {it} iterations in "
         f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; "
         f"losses {result.losses}; PSNR {result.test_psnrs}")
@@ -1806,10 +1807,10 @@ def eval_path(dev, data, mp, root) -> dict:
     n_alive = int(state.alive.sum())
     launches, modes = {}, {}
     for mode, (sub, n) in EVAL_MODES.items():
-        B.launches = 0
+        reset_counts()
         out = R.main(["-m", mp, "--mode", mode])
         torch.cuda.synchronize()
-        launches[mode] = B.launches
+        launches[mode] = B.launch_counts()["blend_fwd"]
         base = os.path.join(mp, "test", f"{sub}_{it}")
         counts = [len([f for f in os.listdir(os.path.join(base, d))
                        if f.endswith(".png")]) for d in ("renders", "depth")]
@@ -1846,10 +1847,10 @@ def eval_path(dev, data, mp, root) -> dict:
             raise AssertionError(f"4j {mode}: frame {k} disagrees with the "
                                  f"plain blend by {diff} of 255")
 
-    B.launches = 0
+    reset_counts()
     out = R.main(["-m", mp, "--mode", "render", "--trajectories"])
     torch.cuda.synchronize()
-    launches["trajectories"] = B.launches
+    launches["trajectories"] = B.launch_counts()["blend_fwd"]
     traj = np.load(os.path.join(mp, "trajectories.npy"), mmap_mode="r")
     traj_info = {**out["trajectories"], "bytes": os.path.getsize(
         os.path.join(mp, "trajectories.npy"))}
@@ -1900,15 +1901,14 @@ def eval_path(dev, data, mp, root) -> dict:
 
     lego = os.path.join(root, "dnerf", "lego")
     shutil.copytree(data, lego)
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     paths = full_eval.main(["--dnerf_path", os.path.join(root, "dnerf"),
                             "--scenes", "lego", "--iterations",
                             str(FULL_EVAL_ITERATIONS), "--output_path",
                             os.path.join(root, "eval")])
     torch.cuda.synchronize()
-    launches["full_eval"] = {"blend_fwd": B.launches,
-                             "blend_bwd": B.launches_bwd}
+    launches["full_eval"] = B.launch_counts()
     with open(os.path.join(paths[0], "results.json")) as f:
         fe = json.load(f)
     fe_psnr = fe.get(f"ours_{FULL_EVAL_ITERATIONS}", {}).get("PSNR")
@@ -2068,7 +2068,7 @@ def hooks_check(dev, data) -> dict:
     opt = C.OptimizationParams(iterations=6, warm_up=3)
     scene = Scene(model, seed=0, device=dev)
     writer, hooks = RecordingWriter(), []
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     train_baseline(
         gaussians=scene.gaussians, train_cams=scene.get_train_cameras(),
         test_cams=scene.get_test_cameras(),
@@ -2078,7 +2078,7 @@ def hooks_check(dev, data) -> dict:
         live_hook=lambda st, ds, field, it: hooks.append(
             (it, st.num_alive, field.spec.kind)))
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     steps = {}
     for e in writer.events:
         steps.setdefault(e[1], []).append(e[2])
@@ -2126,7 +2126,7 @@ def sam_path(dev, data, root) -> dict:
         return value
 
     S.mask_regularization = watch
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     try:
         result = sam_main([
@@ -2139,7 +2139,7 @@ def sam_path(dev, data, root) -> dict:
     finally:
         S.mask_regularization = real
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     deform_steps = SAM_ITERATIONS - SAM_WARM_UP + 1
     regs = [float(r) for r in regs]
     step_ms = 1e3 * (stamps[-1] - stamps[0]) / max(len(stamps) - 1, 1)
@@ -2183,7 +2183,7 @@ def forecast_path(dev, traj_path, root) -> dict:
                                                normalize_window)
     from d3gs_tpu_torch.ops import blend as B
     t_start = time.perf_counter()
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics = FM.main(["--trajectories", traj_path, "--output_dir",
                        os.path.join(root, "forecast"), "--epochs", "1"])
@@ -2224,7 +2224,7 @@ def forecast_path(dev, traj_path, root) -> dict:
            "train_step_profile": step_prof,
            "rollout_ms": rollout_ms, "rollout_windows": n_val,
            "card_vs_cpu_of_largest": err,
-           "blend_launches": B.launches + B.launches_bwd,
+           "blend_launches": sum(B.launch_counts().values()),
            "phase_seconds": time.perf_counter() - t_start}
     log(f"[4k-b] forecast.main at its defaults, 1 epoch: {json.dumps(out)} "
         f"(card vs CPU forward on 64 windows, tol {FORECAST_CHECK_ERR} of "
@@ -2293,10 +2293,10 @@ def viewer_path(dev, data, mp, root) -> dict:
               deform_fn=lambda xyz, fid: fld.step(xyz, fid))
     gui.cam.orbit(150.0, 40.0)
     gui.playing, gui.fid = False, 0.5
-    B.launches = 0
+    reset_counts()
     frame = gui.test_step()
     torch.cuda.synchronize()
-    gui_launches = B.launches
+    gui_launches = B.launch_counts()["blend_fwd"]
     bg = torch.zeros(3, device=dev)
     with torch.no_grad():
         cam = gui._camera()
@@ -2344,14 +2344,14 @@ def sweep_path(dev, data_f, root) -> dict:
     from d3gs_tpu_torch import train_loops
     from d3gs_tpu_torch.ops import blend as B
     t0 = time.perf_counter()
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     res = train_loops.main([
         "-s", data_f, "-m", os.path.join(root, "sweep"), "--eval",
         "--is_blender", "--quiet", "--sh_degree", "3", "--iterations",
         str(SWEEP_ITERATIONS), "--warm_up", "2", "--sequence_lengths", "6",
         "12"])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     k = C.OptimizationParams().num_cams_per_iter
     out = {"best_psnr": res, "launches": launches, "k": k,
            "seconds": time.perf_counter() - t0}
@@ -2595,8 +2595,7 @@ def _gloo_rank(rank, world, folder, shape, tasks):
         bg = torch.zeros(3, device=dev)
         out = {"tile_y0": S.strip_grid(WIDTH, HEIGHT, mesh).tile_y0}
         for task in tasks:
-            B.launches = B.launches_bwd = 0
-            comm.reset_bytes()
+            reset_counts()
             state = _map_state(payload["state"], lambda t: t.to(dev))
             if task == "render":
                 st = M.shard_gaussian_state(state, mesh)
@@ -2630,13 +2629,12 @@ def _gloo_rank(rank, world, folder, shape, tasks):
                                   payload["iteration"], bg)
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
-                nbytes = dict(comm.BYTES)
+                nbytes = comm.bytes_moved()
                 if task != "camera":
                     st = M.gather_gaussian_state(st, mesh)
                 res = {"loss": float(aux.loss), **_step_result(st, field),
                        "bytes": nbytes, "seconds": seconds}
-            res["launches"] = {"blend_fwd": B.launches,
-                               "blend_bwd": B.launches_bwd}
+            res["launches"] = B.launch_counts()
             out[task] = res
         torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
     finally:
@@ -2907,7 +2905,7 @@ def colmap_jpeg_path(root) -> dict:
     shapes = sorted({c.image.shape for c in scene.train_cameras
                      + scene.test_cameras})
     it = COLMAP_ITERATIONS
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = train_main([
         "-s", data, "-m", os.path.join(root, "colmap_model"), "--eval",
@@ -2915,7 +2913,7 @@ def colmap_jpeg_path(root) -> dict:
         str(COLMAP_WARM_UP), "--test_iterations", str(it),
         "--save_iterations", str(it)])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     out = {"scene_load_s": load_s, "image_shapes": [list(s) for s in shapes],
            "views": [len(scene.train_cameras), len(scene.test_cameras)],
            "train_s": time.perf_counter() - t0, "launches": launches,
@@ -3196,7 +3194,7 @@ def png16_frames_path(dev, data, root) -> dict:
         np.array_equal(np.asarray(a.image), np.asarray(b.image))
         for a, b in zip(cams["8bit"], cams["16bit"]))
     it = PNG16_ITERATIONS
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = train_main([
         "-s", data16, "-m", os.path.join(root, "png16_model"), "--eval",
@@ -3204,7 +3202,7 @@ def png16_frames_path(dev, data, root) -> dict:
         str(PNG16_WARM_UP), "--test_iterations", str(it),
         "--save_iterations", str(it)])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     out = {"frames": frames, "interlaced": interlaced,
            "images_equal_to_8bit": equal, "load_s": loads,
            "train_s": time.perf_counter() - t0, "launches": launches,
@@ -3290,12 +3288,12 @@ def bench_path(dev) -> dict:
     from d3gs_tpu_torch.ops import blend as B
     frames = bench_frames(dev)
     buf = io.StringIO()
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = bench.main([])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     seconds = time.perf_counter() - t0
     lines = buf.getvalue().strip().splitlines()
     log(f"[4o] bench.main -> {rc} in {seconds:.1f} s, blend launches "
@@ -3486,7 +3484,7 @@ def cull_cli_path(data, root) -> dict:
         return real(*args, tight_cull=tight_cull, **kw)
     it = CULL_ITERATIONS
     renderer.bin_splats_records = watch
-    B.launches = B.launches_bwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     try:
         result = train_main([
@@ -3497,7 +3495,7 @@ def cull_cli_path(data, root) -> dict:
         torch.cuda.synchronize()
     finally:
         renderer.bin_splats_records = real
-    launches = {"blend_fwd": B.launches, "blend_bwd": B.launches_bwd}
+    launches = B.launch_counts()
     losses = [v for _, v in result.losses]
     out = {"launches": launches, "binnings_culled": binned[True],
            "binnings_uncut": binned[False], "losses": result.losses,
@@ -3912,7 +3910,6 @@ def adaptive_step_layers(field, run, state, cams, bg) -> dict:
     steps depend on the cotangent, so the integral's backward takes the
     step's own: d loss / d positions of the k renders' (1-λ)·L1 +
     λ·(1-SSIM)."""
-    from d3gs_tpu_torch.models.deform import ode as O
     from d3gs_tpu_torch.models.renderer import render
     from d3gs_tpu_torch.ops.losses import l1_loss, ssim
     params = list(field.net.parameters())
@@ -3936,11 +3933,11 @@ def adaptive_step_layers(field, run, state, cams, bg) -> dict:
         ys = field.step_multi(xyz, fids, y0=xyz)[0]
         return torch.autograd.grad(ys, params, cot)
 
-    O.reset_counts()
+    reset_counts()
     run()
     torch.cuda.synchronize()
     counts = ode_counts()
-    O.reset_counts()
+    reset_counts()
     ode_fwd_bwd()
     torch.cuda.synchronize()
     integral_counts = ode_counts()

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import tracing
 from ...ops.schedules import expon_lr
 from .networks import (COMPUTE_DTYPES, DeformMLP, DeformNetworkODE,
                        DeformNetworkSimple, DeformNetworkSimpleStart)
@@ -91,6 +92,11 @@ class DeformField:
             return lambda t, y: self.net(t, y, anchor)
         return self.net
 
+    def _span(self, times: int):
+        """The span `deform` of one call over `times` times."""
+        return tracing.span("deform", kind=self.spec.kind,
+                            solver=self.spec.solver, times=times)
+
     def _anchor(self, xyz, y0):
         """The `simple_start` anchor (the trajectory's start state)."""
         if self.spec.kind != "simple_start":
@@ -104,18 +110,19 @@ class DeformField:
         steps, or the adaptive solve) and return absolute positions with
         zero d_rot, d_scale. Differentiable: the render paths call it under
         `torch.no_grad()`."""
-        if self.spec.kind in MLP_KINDS:
-            return self.net(xyz, t)
-        anchor = self._anchor(xyz, y0)
-        if self.spec.solver == "adaptive":
-            y = odeint_adaptive_from_zero(self.net, xyz, t,
-                                          rtol=self.spec.rtol,
-                                          atol=self.spec.atol, anchor=anchor)
-        else:
-            y = odeint_from_zero(self._dynamics(anchor), xyz, t,
-                                 n_substeps=2 * self.spec.n_substeps)
-        n = xyz.shape[0]
-        return y, xyz.new_zeros((n, 4)), xyz.new_zeros((n, 3))
+        with self._span(1):
+            if self.spec.kind in MLP_KINDS:
+                return self.net(xyz, t)
+            anchor = self._anchor(xyz, y0)
+            if self.spec.solver == "adaptive":
+                y = odeint_adaptive_from_zero(
+                    self.net, xyz, t, rtol=self.spec.rtol,
+                    atol=self.spec.atol, anchor=anchor)
+            else:
+                y = odeint_from_zero(self._dynamics(anchor), xyz, t,
+                                     n_substeps=2 * self.spec.n_substeps)
+            n = xyz.shape[0]
+            return y, xyz.new_zeros((n, 4)), xyz.new_zeros((n, 3))
 
     def step_multi(self, xyz: torch.Tensor, ts, y0: torch.Tensor | None = None):
         """A window of times, ts (T,) sorted (or (N, T) per-sample for the
@@ -123,19 +130,21 @@ class DeformField:
         each time on its own; ODE kinds integrate one trajectory anchored
         at ts[0] with state xyz (torchode's InitialValueProblem semantics,
         deform_model.py:26-33)."""
-        if self.spec.kind in MLP_KINDS:
-            outs = [self.net(xyz, t) for t in ts]
-            return tuple(torch.stack(o) if isinstance(o[0], torch.Tensor)
-                         else o[0] for o in zip(*outs))
-        anchor = self._anchor(xyz, y0)
-        if self.spec.solver == "adaptive":
-            ys = odeint_adaptive(self.net, xyz, ts, rtol=self.spec.rtol,
-                                 atol=self.spec.atol, anchor=anchor)
-        else:
-            ys = odeint_grid(self._dynamics(anchor), xyz, ts,
-                             n_substeps=self.spec.n_substeps)
-        T, n = ys.shape[:2]
-        return ys, xyz.new_zeros((T, n, 4)), xyz.new_zeros((T, n, 3))
+        with self._span(ts.shape[-1] if isinstance(ts, torch.Tensor)
+                        else len(ts)):
+            if self.spec.kind in MLP_KINDS:
+                outs = [self.net(xyz, t) for t in ts]
+                return tuple(torch.stack(o) if isinstance(o[0], torch.Tensor)
+                             else o[0] for o in zip(*outs))
+            anchor = self._anchor(xyz, y0)
+            if self.spec.solver == "adaptive":
+                ys = odeint_adaptive(self.net, xyz, ts, rtol=self.spec.rtol,
+                                     atol=self.spec.atol, anchor=anchor)
+            else:
+                ys = odeint_grid(self._dynamics(anchor), xyz, ts,
+                                 n_substeps=self.spec.n_substeps)
+            T, n = ys.shape[:2]
+            return ys, xyz.new_zeros((T, n, 4)), xyz.new_zeros((T, n, 3))
 
     def init_state(self) -> DeformState:
         params = list(self.net.parameters())

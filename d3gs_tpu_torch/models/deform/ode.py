@@ -30,9 +30,21 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ... import tracing
+
 
 def _rk4_step(f: Callable, y: torch.Tensor, t, dt):
-    """One RK4 step; t and dt are numbers or per-sample (N, 1) tensors."""
+    """One RK4 step; t and dt are numbers or per-sample (N, 1) tensors.
+    Counts its 4 evaluations under `ode.evals.forward` while autograd
+    records, `ode.evals.nograd` while it does not, and
+    `ode.evals.recompute` when a checkpointed step runs again inside
+    autograd's backward."""
+    if torch._C._current_graph_task_id() != -1:
+        tracing.count("ode.evals.recompute", 4)
+    elif torch.is_grad_enabled():
+        tracing.count("ode.evals.forward", 4)
+    else:
+        tracing.count("ode.evals.nograd", 4)
     k1 = f(t, y)
     k2 = f(t + dt * 0.5, y + 0.5 * dt * k1)
     k3 = f(t + dt * 0.5, y + 0.5 * dt * k2)
@@ -140,7 +152,9 @@ def odeint_from_zero(f: Callable, y0: torch.Tensor, t, *,
 # Scalars of the controller (t, dt, the error ratio) are float32 tensors on
 # the state's device, computed as JAX computes them. The host reads t and dt
 # once per loop iteration (one transfer) to decide whether to go on; these
-# reads and the steps and evaluations are counted in `COUNTS`.
+# reads and the steps and evaluations are counted by `tracing.count`, under
+# `ode.adaptive.<forward|backward>.<field of SolveCounts>` and the reads
+# under `host_reads.ode.adaptive.<forward|backward>` (`solve_counts`).
 #
 # Lanes. A shared (T,) grid is one controller for the whole state. Per-
 # sample (N, T) grids give each row its own controller, as `jax.vmap` of the
@@ -175,12 +189,13 @@ _FROM_ZERO_MIN_T = 1e-6   # odeint_adaptive_from_zero's least horizon
 
 @dataclasses.dataclass
 class SolveCounts:
-    """What the adaptive solves cost since the last `reset_counts()`.
-    `iterations`: loop iterations (one batched step of every lane);
-    `accepted` / `rejected`: lane-steps (a shared grid has one lane);
-    `evals`: batched evaluations of the dynamics net (in the backward each
-    a forward and a vector-Jacobian product, besides one forward per output
-    time for its t_bar term); `reads`: device-to-host transfers."""
+    """What the adaptive solves of one direction cost since the counters
+    were last drained. `iterations`: loop iterations (one batched step of
+    every lane); `accepted` / `rejected`: lane-steps (a shared grid has one
+    lane); `evals`: batched evaluations of the dynamics net (in the
+    backward each a forward and a vector-Jacobian product, besides one
+    forward per output time for its t_bar term); `reads`: device-to-host
+    transfers."""
     solves: int = 0
     iterations: int = 0
     accepted: int = 0
@@ -189,12 +204,18 @@ class SolveCounts:
     reads: int = 0
 
 
-COUNTS = {"forward": SolveCounts(), "backward": SolveCounts()}
+def _site(direction: str) -> str:
+    return "ode.adaptive." + direction
 
 
-def reset_counts() -> None:
-    for key in COUNTS:
-        COUNTS[key] = SolveCounts()
+def solve_counts(direction: str) -> SolveCounts:
+    """The facility's counters of the `forward` or `backward` solves."""
+    c = tracing.counters()
+    site = _site(direction)
+    fields = [f.name for f in dataclasses.fields(SolveCounts)
+              if f.name != "reads"]
+    return SolveCounts(reads=c.get("host_reads." + site, 0),
+                       **{k: c.get(f"{site}.{k}", 0) for k in fields})
 
 
 class _Lanes:
@@ -319,34 +340,35 @@ def _polyval(coeffs, r):
     return v
 
 
-def _read(t: torch.Tensor, cnt: SolveCounts) -> np.ndarray:
-    cnt.reads += 1
-    return t.cpu().numpy()
+def _read(t: torch.Tensor, site: str) -> np.ndarray:
+    with tracing.host_read(site):
+        return t.cpu().numpy()
 
 
 def _dopri5(fun, y0: list, ts: np.ndarray, lanes: _Lanes, rtol: float,
-            atol: float, cnt: SolveCounts) -> list:
+            atol: float, site: str) -> list:
     """Integrate the components y0 (at ts[:, 0]) through the (R, T) float32
     grid `ts`, strictly increasing along T; -> for each target index j >= 1
-    the list of components at ts[:, j] (dense output)."""
+    the list of components at ts[:, j] (dense output). Counted under
+    `site` (`_site(direction)`)."""
     dev = y0[0].device
     tab = _Tableau(dev)
     t_dev = torch.from_numpy(np.ascontiguousarray(ts)).to(dev)
-    cnt.solves += 1
+    tracing.count(site + ".solves")
     t = t_dev[:, 0]
     f = fun(y0, t)
     dt = _initial_step_size(fun, t, y0, f, rtol, atol, lanes).clamp_min(0.)
-    cnt.evals += 2
+    tracing.count(site + ".evals", 2)
     y, last_t = y0, t
     coeffs = [[c] * 5 for c in y0]
-    t_h, dt_h = _read(torch.stack([t, dt]), cnt)
+    t_h, dt_h = _read(torch.stack([t, dt]), site)
     outs = []
     for j in range(1, ts.shape[1]):
         target, target_h = t_dev[:, j], ts[:, j]
         while ((t_h < target_h) & (dt_h > 0)).any():
             active = (t < target) & (dt > 0)
             y1, f1, err, ks = _rk_step(fun, tab, y, f, t, dt, lanes)
-            cnt.evals += 6
+            tracing.count(site + ".evals", 6)
             ratio = _mean_error_ratio(err, y, y1, rtol, atol, lanes)
             fit = _interp_fit(tab, y, y1, ks, dt, lanes)
             new_dt = _optimal_step_size(dt, ratio).clamp_min(0.)
@@ -361,10 +383,10 @@ def _dopri5(fun, y0: list, ts: np.ndarray, lanes: _Lanes, rtol: float,
             t = torch.where(acc, t + dt, t)
             dt = torch.where(active, new_dt, dt)
             t_h, dt_h, acc_h, act_h = _read(
-                torch.stack([t, dt, acc.to(_F32), active.to(_F32)]), cnt)
-            cnt.iterations += 1
-            cnt.accepted += int(acc_h.sum())
-            cnt.rejected += int((act_h > acc_h).sum())
+                torch.stack([t, dt, acc.to(_F32), active.to(_F32)]), site)
+            tracing.count(site + ".iterations")
+            tracing.count(site + ".accepted", int(acc_h.sum()))
+            tracing.count(site + ".rejected", int((act_h > acc_h).sum()))
         r = (target - last_t) / (t - last_t)
         outs.append([_polyval(cs, lanes.bc(r, cs[0])) for cs in coeffs])
     return outs
@@ -439,12 +461,12 @@ class _AdjointSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, y0, anchor, *params):
         dyn, ts, lanes, rtol, atol = cfg
-        cnt = COUNTS["forward"]
 
         def fun(state, t):
             return [dyn(lanes.time(t), state[0], anchor)]
         with torch.no_grad():
-            outs = _dopri5(fun, [y0], ts, lanes, rtol, atol, cnt)
+            outs = _dopri5(fun, [y0], ts, lanes, rtol, atol,
+                           _site("forward"))
             ys = torch.stack([y0] + [o[0] for o in outs])
         ctx.cfg = cfg
         ctx.save_for_backward(ys, *(() if anchor is None else (anchor,)))
@@ -455,7 +477,7 @@ class _AdjointSolve(torch.autograd.Function):
         dyn, ts, lanes, rtol, atol = ctx.cfg
         ys, *saved = ctx.saved_tensors
         anchor = saved[0] if saved else None
-        cnt = COUNTS["backward"]
+        site = _site("backward")
         n_rows = ys.shape[1]
         t_dev = torch.from_numpy(np.ascontiguousarray(ts)).to(ys.device)
         aug = _augmented(dyn, lanes, anchor)
@@ -467,11 +489,11 @@ class _AdjointSolve(torch.autograd.Function):
         for i in range(ys.shape[0] - 1, 0, -1):
             with torch.no_grad():
                 f_i = dyn(lanes.time(t_dev[:, i]), ys[i], anchor)
-            cnt.evals += 1
+            tracing.count(site + ".evals")
             t0_bar = t0_bar - lanes.dot(f_i, g[i])
             seg = np.stack([-ts[:, i], -ts[:, i - 1]], axis=1)
             (out,) = _dopri5(aug, [ys[i], y_bar, t0_bar, *p_bar, *a_bar],
-                             seg, lanes, rtol, atol, cnt)
+                             seg, lanes, rtol, atol, site)
             y_bar, t0_bar = out[1] + g[i - 1], out[2]
             p_bar, a_bar = out[3:3 + len(p_bar)], out[3 + len(p_bar):]
         if lanes.per_sample:
@@ -523,8 +545,10 @@ def odeint_adaptive(f: Callable, y0: torch.Tensor, ts, *, rtol: float = 1e-3,
                          "matching y0")
     if isinstance(ts, torch.Tensor):
         if ts.device.type != "cpu":
-            COUNTS["forward"].reads += 1
-        host = ts.detach().to(_F32).cpu().numpy()
+            with tracing.host_read(_site("forward")):
+                host = ts.detach().to(_F32).cpu().numpy()
+        else:
+            host = ts.detach().to(_F32).numpy()
     else:
         host = np.asarray(ts, dtype=np.float32)
     lanes = _Lanes(y0.shape[0] if per_sample else None)

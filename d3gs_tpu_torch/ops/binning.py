@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from .. import tracing
 from .projection import TILE, ProjectedSplats
 
 # a duplicate survives the cull when its largest alpha over the tile,
@@ -93,67 +94,73 @@ def bin_splats_records(splats: ProjectedSplats, *, tiles_x: int,
     `dup_capacity` is the duplicate budget (0 = 16·N, rounded up to 512 as
     in the JAX package); M = min(total duplicates, budget), less the
     duplicates `tight_cull` drops after the budget's truncation."""
-    n = splats.depths.shape[0]
-    dev = splats.depths.device
-    num_tiles = tiles_x * tiles_y
-    if dup_capacity <= 0:
-        dup_capacity = 16 * n
-    m_cap = ((dup_capacity + 511) // 512) * 512
-    shift = max(int(n).bit_length(), 1)
+    with tracing.span("render.bin"):
+        n = splats.depths.shape[0]
+        dev = splats.depths.device
+        num_tiles = tiles_x * tiles_y
+        if dup_capacity <= 0:
+            dup_capacity = 16 * n
+        m_cap = ((dup_capacity + 511) // 512) * 512
+        shift = max(int(n).bit_length(), 1)
 
-    tmin = splats.tile_min.long()
-    tmax = splats.tile_max.long()
-    ty_lo = tmin[:, 1].clamp_min(tile_y0)
-    ty_hi = tmax[:, 1].clamp_max(tile_y0 + tiles_y)
-    bw = tmax[:, 0] - tmin[:, 0]
-    bh = (ty_hi - ty_lo).clamp_min(0)
-    cnt_u = torch.where(splats.visible, bw * bh, torch.zeros_like(bw))
+        tmin = splats.tile_min.long()
+        tmax = splats.tile_max.long()
+        ty_lo = tmin[:, 1].clamp_min(tile_y0)
+        ty_hi = tmax[:, 1].clamp_max(tile_y0 + tiles_y)
+        bw = tmax[:, 0] - tmin[:, 0]
+        bh = (ty_hi - ty_lo).clamp_min(0)
+        cnt_u = torch.where(splats.visible, bw * bh, torch.zeros_like(bw))
 
-    depth_key = torch.where(cnt_u > 0, splats.depths,
-                            torch.full_like(splats.depths, float("inf")))
-    order = torch.argsort(depth_key, stable=True)
-    cnt = cnt_u[order]
-    ends = torch.cumsum(cnt, 0)
-    offsets = ends - cnt
-    total = int(ends[-1]) if n else 0
-    kept = min(total, m_cap)
+        depth_key = torch.where(cnt_u > 0, splats.depths,
+                                torch.full_like(splats.depths, float("inf")))
+        order = torch.argsort(depth_key, stable=True)
+        cnt = cnt_u[order]
+        ends = torch.cumsum(cnt, 0)
+        offsets = ends - cnt
+        total = 0
+        if n:
+            with tracing.host_read("binning"):
+                total = int(ends[-1])
+        kept = min(total, m_cap)
 
-    # ragged expand: duplicate m belongs to depth rank src[m]
-    rank = torch.arange(n, device=dev)
-    src = torch.repeat_interleave(rank, cnt, output_size=total)[:kept]
-    j = torch.arange(kept, device=dev) - offsets[src]
-    w = bw[order].clamp_min(1)[src]
-    tx = tmin[order, 0][src] + j % w
-    ty = ty_lo[order][src] + j // w - tile_y0
-    key = ((ty * tiles_x + tx) << shift) | src
-    if tight_cull:
-        g = order[src]
-        mu = splats.means2d[g]
-        con = splats.conics[g]
-        # the tile's absolute row: ty counts from the strip's first row
-        pmax = tile_max_power(mu[:, 0], mu[:, 1], con[:, 0], con[:, 1],
-                              con[:, 2], tx.float(),
-                              (ty + tile_y0).float())
-        keep = (pmax + torch.log(splats.opacities[g].clamp_min(1e-30))
-                >= LOG_ALPHA_MIN)
-        key = torch.where(keep, key, num_tiles << shift)
-    key_sorted = torch.sort(key).values
-    rank_sorted = key_sorted & ((1 << shift) - 1)
-    tile_keys = torch.arange(num_tiles + 1, device=dev) << shift
-    starts = torch.searchsorted(key_sorted, tile_keys, side="left")
+        # ragged expand: duplicate m belongs to depth rank src[m]
+        rank = torch.arange(n, device=dev)
+        src = torch.repeat_interleave(rank, cnt, output_size=total)[:kept]
+        j = torch.arange(kept, device=dev) - offsets[src]
+        w = bw[order].clamp_min(1)[src]
+        tx = tmin[order, 0][src] + j % w
+        ty = ty_lo[order][src] + j // w - tile_y0
+        key = ((ty * tiles_x + tx) << shift) | src
+        if tight_cull:
+            g = order[src]
+            mu = splats.means2d[g]
+            con = splats.conics[g]
+            # the tile's absolute row: ty counts from the strip's first row
+            pmax = tile_max_power(mu[:, 0], mu[:, 1], con[:, 0], con[:, 1],
+                                  con[:, 2], tx.float(),
+                                  (ty + tile_y0).float())
+            keep = (pmax + torch.log(splats.opacities[g].clamp_min(1e-30))
+                    >= LOG_ALPHA_MIN)
+            key = torch.where(keep, key, num_tiles << shift)
+        key_sorted = torch.sort(key).values
+        rank_sorted = key_sorted & ((1 << shift) - 1)
+        tile_keys = torch.arange(num_tiles + 1, device=dev) << shift
+        starts = torch.searchsorted(key_sorted, tile_keys, side="left")
 
-    # surviving duplicates per rank: position < kept, and kept by the cull
-    # (src ascends, so a rank's duplicates are one run of the expansion:
-    # a cumsum over the mask counts them without a host sync)
-    if tight_cull:
-        vcs = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
-                         torch.cumsum(keep.long(), 0)])
-        cnt_surv = vcs[ends.clamp(0, kept)] - vcs[offsets.clamp(0, kept)]
-    else:
-        cnt_surv = ends.clamp(0, kept) - offsets.clamp(0, kept)
-    rank_bounds = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
-                             torch.cumsum(cnt_surv, 0)])
-    i32 = torch.int32
-    return RecordBins(rank_sorted=rank_sorted.to(i32), starts=starts.to(i32),
-                      counts=torch.diff(starts).to(i32), order=order.to(i32),
-                      rank_bounds=rank_bounds.to(i32))
+        # surviving duplicates per rank: position < kept, and kept by the cull
+        # (src ascends, so a rank's duplicates are one run of the expansion:
+        # a cumsum over the mask counts them without a host sync)
+        if tight_cull:
+            vcs = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                             torch.cumsum(keep.long(), 0)])
+            cnt_surv = vcs[ends.clamp(0, kept)] - vcs[offsets.clamp(0, kept)]
+        else:
+            cnt_surv = ends.clamp(0, kept) - offsets.clamp(0, kept)
+        rank_bounds = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                                 torch.cumsum(cnt_surv, 0)])
+        i32 = torch.int32
+        return RecordBins(rank_sorted=rank_sorted.to(i32),
+                          starts=starts.to(i32),
+                          counts=torch.diff(starts).to(i32),
+                          order=order.to(i32),
+                          rank_bounds=rank_bounds.to(i32))

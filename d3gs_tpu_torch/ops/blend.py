@@ -47,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import _build
 from .binning import RecordBins
 from .projection import TILE
@@ -57,11 +58,13 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 
-# kernel launches on CUDA tensors since import (or since a caller last reset
-# them): `launches` counts the forward, `launches_bwd` the backward; the
-# plain versions do not count
-launches = 0
-launches_bwd = 0
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches on CUDA tensors since the port's counters were last
+    drained (`tracing.drain`): `blend_fwd`, `blend_bwd`; the plain
+    versions do not count."""
+    c = tracing.counters()
+    return {k: c.get("launches." + k, 0) for k in ("blend_fwd", "blend_bwd")}
 
 
 def sorted_gids(bins: RecordBins) -> torch.Tensor:
@@ -120,8 +123,9 @@ def blend_records(records: torch.Tensor, bins: RecordBins, bg: torch.Tensor,
     `records` and `bg`. With depth_grad=False the backward treats the
     depth cotangent as zero and skips its math (the photometric trainers'
     setting, as in the JAX package)."""
-    return BlendFunction.apply(records, bg, bins, tiles_x, tiles_y, width,
-                               height, depth_grad, tile_y0)
+    with tracing.span("render.blend"):
+        return BlendFunction.apply(records, bg, bins, tiles_x, tiles_y,
+                                   width, height, depth_grad, tile_y0)
 
 
 class BlendFunction(torch.autograd.Function):
@@ -150,11 +154,12 @@ class BlendFunction(torch.autograd.Function):
         fwd = BlendOutput(image=None, depth=None, alpha=None,
                           t_final=t_final, log_t=None, n_walked=None,
                           last_contrib=last_contrib)
-        g_rec = blend_backward(
-            records, ctx.bins, bg, fwd, g_image.contiguous(),
-            g_depth.contiguous(), g_alpha.contiguous(),
-            depth_grad=ctx.depth_grad, gid=ctx.gid, **ctx.grid)
-        g_bg = (g_image * t_final[..., None]).sum(dim=(0, 1))
+        with tracing.span("blend.bwd"):
+            g_rec = blend_backward(
+                records, ctx.bins, bg, fwd, g_image.contiguous(),
+                g_depth.contiguous(), g_alpha.contiguous(),
+                depth_grad=ctx.depth_grad, gid=ctx.gid, **ctx.grid)
+            g_bg = (g_image * t_final[..., None]).sum(dim=(0, 1))
         return g_rec, g_bg, None, None, None, None, None, None, None
 
 
@@ -413,7 +418,6 @@ def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
     """Launch `csrc/blend_fwd.cu` on the current stream; raises if the
     kernel cannot be built or launched. `gid`: `sorted_gids(bins)`,
     gathered here if None."""
-    global launches
     gid = _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height,
                         gid, tile_y0)
     dev = records.device
@@ -428,7 +432,7 @@ def blend_forward_cuda(records: torch.Tensor, bins: RecordBins,
                       last_contrib=last)
     launch(records, gid, bins.starts, bg, out, tiles_x=tiles_x,
            tiles_y=tiles_y, tile_y0=tile_y0)
-    launches += 1
+    tracing.count("launches.blend_fwd")
     return out
 
 
@@ -462,7 +466,6 @@ def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
     (N, 16) gradient; raises if the kernel cannot be built or launched.
     It reads the forward's t_final and last_contrib; `gid` as in
     `blend_forward_cuda`."""
-    global launches_bwd
     gid = _check_inputs(records, bins, bg, tiles_x, tiles_y, width, height,
                         gid, tile_y0)
     dev = records.device
@@ -477,7 +480,7 @@ def blend_backward_cuda(records: torch.Tensor, bins: RecordBins,
     launch_bwd(records, gid, bins.starts, bg, fwd, g_image, g_depth, g_alpha,
                grad, tiles_x=tiles_x, tiles_y=tiles_y, depth_grad=depth_grad,
                tile_y0=tile_y0)
-    launches_bwd += 1
+    tracing.count("launches.blend_bwd")
     return grad
 
 

@@ -10,8 +10,8 @@ rows of 16 (counterparts of the Pallas kernels in `tools/exp_r5_reduce.py`,
 Each wrapper launches its hand-written kernel (`csrc/row_copy.cu`,
 `csrc/row_gather.cu`, `csrc/scatter_add_rows.cu`) for CUDA tensors and
 takes its plain PyTorch version (`*_torch`) for CPU tensors; it never falls
-back from one to the other. `launches` counts the kernel launches per
-kernel since import (or since a caller last reset it).
+back from one to the other. `launch_counts()` reads the kernel launches
+per kernel since the port's counters were last drained (`tracing`).
 """
 from __future__ import annotations
 
@@ -19,11 +19,17 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import _build
 
 REC = 16
+KERNELS = ("row_copy", "row_gather", "scatter_add_rows")
 
-launches = {"row_copy": 0, "row_gather": 0, "scatter_add_rows": 0}
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each row kernel since the counters were last drained."""
+    c = tracing.counters()
+    return {k: c.get("launches." + k, 0) for k in KERNELS}
 
 _LL, _P = ctypes.c_longlong, ctypes.c_void_p
 _COPY_ARGTYPES = [_P, _LL, _LL, _LL, _LL, _LL, _P, _P]
@@ -108,7 +114,7 @@ def row_copy_cuda(x: torch.Tensor) -> torch.Tensor:
     b, r, _ = x3.shape
     out = torch.empty((b * r, REC), dtype=torch.float32, device=x.device)
     launch_row_copy(x3, out)
-    launches["row_copy"] += 1
+    tracing.count("launches.row_copy")
     return out
 
 
@@ -150,7 +156,7 @@ def row_gather_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((*idx.shape, REC), dtype=torch.float32,
                       device=table.device)
     launch_row_gather(table, idx, out)
-    launches["row_gather"] += 1
+    tracing.count("launches.row_gather")
     return out
 
 
@@ -207,7 +213,7 @@ def scatter_add_rows_cuda(g: torch.Tensor, rank: torch.Tensor,
         raise ValueError("rows: rank must be on g's device")
     out = torch.zeros((n, REC), dtype=torch.float32, device=g.device)
     launch_scatter_add_rows(rows, flat_rank, out)
-    launches["scatter_add_rows"] += 1
+    tracing.count("launches.scatter_add_rows")
     return out
 
 

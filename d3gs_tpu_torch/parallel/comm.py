@@ -31,25 +31,28 @@ collective and back, always, chosen by the group's backend, and says so
 once. NCCL never stages through the host. A group of one rank moves
 nothing.
 
-`BYTES` counts, per collective, the bytes of its full tensor on this rank:
-the gathered output of an all-gather, the input of a reduce-scatter, the
-tensor of an all-reduce or a broadcast, the rows a halo exchange sends
-(staging copies are not counted). These are the volumes of the per-step
-byte model in `parallel/__init__.py`. `reset_bytes()` zeroes them.
+Each collective counts the bytes of its full tensor on this rank under
+`comm.bytes.<kind>` (`tracing.count`): the gathered output of an
+all-gather, the input of a reduce-scatter, the tensor of an all-reduce or
+a broadcast, the rows a halo exchange sends (staging copies are not
+counted). These are the volumes of the per-step byte model in
+`parallel/__init__.py`; `bytes_moved()` reads them.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-BYTES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
-         "halo": 0, "broadcast": 0}
+from .. import tracing
+
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "halo", "broadcast")
 _staging_noted = False
 
 
-def reset_bytes() -> None:
-    for k in BYTES:
-        BYTES[k] = 0
+def bytes_moved() -> dict[str, int]:
+    """The bytes counted per kind of collective."""
+    c = tracing.counters()
+    return {k: c.get("comm.bytes." + k, 0) for k in KINDS}
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -66,7 +69,8 @@ def _staged(x: torch.Tensor, group) -> bool:
 
 
 def _count(kind: str, x: torch.Tensor, factor: int = 1) -> None:
-    BYTES[kind] += x.numel() * x.element_size() * factor
+    tracing.count("comm.bytes." + kind,
+                  x.numel() * x.element_size() * factor)
 
 
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -207,11 +211,11 @@ def _exchange(send_up, send_down, up: int | None, down: int | None):
     if up is not None:
         ops += [dist.P2POp(dist.isend, send_up.contiguous(), up),
                 dist.P2POp(dist.irecv, from_up, up)]
-        BYTES["halo"] += send_up.numel() * send_up.element_size()
+        _count("halo", send_up)
     if down is not None:
         ops += [dist.P2POp(dist.isend, send_down.contiguous(), down),
                 dist.P2POp(dist.irecv, from_down, down)]
-        BYTES["halo"] += send_down.numel() * send_down.element_size()
+        _count("halo", send_down)
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()

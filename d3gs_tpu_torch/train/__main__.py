@@ -181,8 +181,9 @@ def _train(args, model_cfg, pipe_cfg, opt_cfg, device, mesh):
         tb_writer.close()
     if mesh is not None and device.type == "cuda":
         from ..ops import blend as B
+        n = B.launch_counts()
         print(f"rank {mesh.rank}: blend kernel launches: forward "
-              f"{B.launches}, backward {B.launches_bwd}", flush=True)
+              f"{n['blend_fwd']}, backward {n['blend_bwd']}", flush=True)
     if lead:
         print(f"Best PSNR = {result.best_psnr:.2f} "
               f"in Iteration {result.best_iteration}")

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..data.cameras import Camera
 from ..models import gaussians as G
 from ..models.deform.fields import (MLP_KINDS, ODE_KINDS, DeformFieldSpec,
@@ -51,7 +52,7 @@ from ..ops.losses import l1_loss, ssim
 from .baseline import (IterTimer, TrainResult, densify_cadence, densify_due,
                        evaluate, log_evaluation, log_scalars, save_checkpoint,
                        subsample_stack)
-from .step import StepAux, make_eval_render
+from .step import StepAux, make_eval_render, mark_field_backward
 
 
 def pick_field_spec(model_cfg, opt_cfg) -> DeformFieldSpec:
@@ -125,9 +126,11 @@ def make_batched_loss_and_grads(*, opt_cfg, pipe_cfg, model_cfg, field,
                          dup_capacity=pipe_cfg.dup_capacity,
                          antialias=pipe_cfg.antialias,
                          depth_grad=pipe_cfg.depth_grad)
-            ll1 = l1_loss(out.image, cam.image)
-            li = (1.0 - lam) * ll1 + lam * (1.0 - ssim(out.image, cam.image))
-            loss = loss + w[i] * li
+            with tracing.span("loss"):
+                ll1 = l1_loss(out.image, cam.image)
+                li = ((1.0 - lam) * ll1
+                      + lam * (1.0 - ssim(out.image, cam.image)))
+                loss = loss + w[i] * li
             l1_sum = l1_sum + w[i] * ll1.detach()
             top, total = out.counts.max(), out.counts.sum()
             if radii is None:
@@ -139,8 +142,13 @@ def make_batched_loss_and_grads(*, opt_cfg, pipe_cfg, model_cfg, field,
             wsum = sum(w)
         loss = loss / wsum
         inputs = [*params, *deform_params, tap]
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True,
-                                    materialize_grads=True)
+        with tracing.span("backward"):
+            if tracing.enabled() and use_deform and not per_camera:
+                # the trajectory's gradient is whole once every render's
+                # backward has run: the integral's backward starts there
+                mark_field_backward(staged[0])
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True,
+                                        materialize_grads=True)
         n = len(params)
         return BatchGrads(loss=loss.detach(), l1=l1_sum / wsum,
                           params=G.GaussianParams(*grads[:n]),
@@ -164,11 +172,13 @@ def make_batched_step(*, opt_cfg, pipe_cfg, model_cfg, field,
 
     def step(state: G.GaussianState, deform_state, cams: list[Camera],
              iteration, bg, wts=None):
-        r = loss_and_grads(state, cams, bg, wts)
-        return apply_updates(state, deform_state, r, iteration,
-                             opt_cfg=opt_cfg, field=field,
-                             update_gaussians=update_gaussians,
-                             update_deform=update_deform)
+        with tracing.span("train.step", iteration=iteration,
+                          cameras=len(cams), gaussians=state.capacity):
+            r = loss_and_grads(state, cams, bg, wts)
+            return apply_updates(state, deform_state, r, iteration,
+                                 opt_cfg=opt_cfg, field=field,
+                                 update_gaussians=update_gaussians,
+                                 update_deform=update_deform)
 
     return step
 
@@ -181,16 +191,20 @@ def apply_updates(state: G.GaussianState, deform_state, r: BatchGrads,
     and reduced gradients, for the sharded steps): the masked Gaussian Adam
     with the densification statistics (unless Gaussians are frozen or not
     updated) and the deform Adam. -> (state, deform_state, StepAux)."""
-    if update_gaussians and not opt_cfg.freeze_gaussians:
-        lrs = G.group_learning_rates(opt_cfg, iteration,
-                                     state.spatial_lr_scale)
-        params, opt = G.adam_step(state.params, r.params, state.opt, lrs,
-                                  mask=state.alive)
-        state = G.add_densification_stats(
-            dataclasses.replace(state, params=params, opt=opt), r.tap,
-            r.radii)
-    if update_deform and deform_state is not None:
-        deform_state = field.update(deform_state, r.deform, iteration)
+    with tracing.span("adam"):
+        if update_gaussians and not opt_cfg.freeze_gaussians:
+            with tracing.span("adam.gaussians"):
+                lrs = G.group_learning_rates(opt_cfg, iteration,
+                                             state.spatial_lr_scale)
+                params, opt = G.adam_step(state.params, r.params, state.opt,
+                                          lrs, mask=state.alive)
+                state = G.add_densification_stats(
+                    dataclasses.replace(state, params=params, opt=opt),
+                    r.tap, r.radii)
+        if update_deform and deform_state is not None:
+            with tracing.span("adam.deform"):
+                deform_state = field.update(deform_state, r.deform,
+                                            iteration)
     aux = StepAux(loss=r.loss, l1=r.l1, radii=r.radii,
                   tile_overflow=r.tile_overflow, dup_total=r.dup_total)
     return state, deform_state, aux

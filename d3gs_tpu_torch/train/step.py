@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import tracing
 from ..data.cameras import Camera
 from ..models import gaussians as G
 from ..models.renderer import render
@@ -76,14 +77,19 @@ def make_loss_and_grads(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
                      bg=bg, means2d_tap=tap, dup_capacity=pipe_cfg.dup_capacity,
                      tight_cull=pipe_cfg.tight_cull,
                      antialias=pipe_cfg.antialias, depth_grad=depth_grad)
-        ll1 = l1_loss(out.image, camera.image)
-        loss = (1.0 - lam) * ll1 + lam * (1.0 - ssim(out.image, camera.image))
-        if extra_loss_fn is not None:
-            loss = loss + extra_loss_fn(out, (dx, dr, ds), camera, st,
-                                        aux_data)
+        with tracing.span("loss"):
+            ll1 = l1_loss(out.image, camera.image)
+            loss = ((1.0 - lam) * ll1
+                    + lam * (1.0 - ssim(out.image, camera.image)))
+            if extra_loss_fn is not None:
+                loss = loss + extra_loss_fn(out, (dx, dr, ds), camera, st,
+                                            aux_data)
         inputs = [*params, *deform_params, tap]
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True,
-                                    materialize_grads=True)
+        with tracing.span("backward"):
+            if tracing.enabled():
+                mark_field_backward(dx)
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True,
+                                        materialize_grads=True)
         n = len(params)
         return StepGrads(loss=loss.detach(), l1=ll1.detach(),
                          params=G.GaussianParams(*grads[:n]),
@@ -109,24 +115,40 @@ def make_train_step(*, opt_cfg, pipe_cfg, is_6dof: bool = False,
 
     def step(state: G.GaussianState, deform_state, camera: Camera, iteration,
              generator, bg, aux_data=None):
-        r = loss_and_grads(state, camera, iteration, generator, bg, aux_data)
-        with torch.no_grad():
-            lrs = G.group_learning_rates(opt_cfg, iteration,
-                                         state.spatial_lr_scale)
-            params, opt = G.adam_step(state.params, r.params, state.opt, lrs,
-                                      mask=state.alive)
-            state = G.add_densification_stats(
-                dataclasses.replace(state, params=params, opt=opt), r.tap,
-                r.out.radii)
-            if deform_fn is not None and deform_update_fn is not None:
-                deform_state = deform_update_fn(deform_state, r.deform,
-                                                iteration)
-        counts = r.out.counts
-        aux = StepAux(loss=r.loss, l1=r.l1, radii=r.out.radii,
-                      tile_overflow=counts.max(), dup_total=counts.sum())
-        return state, deform_state, aux
+        with tracing.span("train.step", iteration=iteration, cameras=1,
+                          gaussians=state.capacity):
+            r = loss_and_grads(state, camera, iteration, generator, bg,
+                               aux_data)
+            with torch.no_grad(), tracing.span("adam"):
+                with tracing.span("adam.gaussians"):
+                    lrs = G.group_learning_rates(opt_cfg, iteration,
+                                                 state.spatial_lr_scale)
+                    params, opt = G.adam_step(state.params, r.params,
+                                              state.opt, lrs,
+                                              mask=state.alive)
+                    state = G.add_densification_stats(
+                        dataclasses.replace(state, params=params, opt=opt),
+                        r.tap, r.out.radii)
+                if deform_fn is not None and deform_update_fn is not None:
+                    with tracing.span("adam.deform"):
+                        deform_state = deform_update_fn(
+                            deform_state, r.deform, iteration)
+            counts = r.out.counts
+            aux = StepAux(loss=r.loss, l1=r.l1, radii=r.out.radii,
+                          tile_overflow=counts.max(), dup_total=counts.sum())
+            return state, deform_state, aux
 
     return step
+
+
+def mark_field_backward(out) -> None:
+    """Open the span `backward.deform` under the running `backward` when
+    autograd has the whole gradient of the field's output `out` (a hook
+    that leaves the gradient as it is): from there on the backward runs
+    through the field (an ODE's recompute and vector-Jacobian products).
+    Nothing for an output without a gradient."""
+    if isinstance(out, torch.Tensor) and out.requires_grad:
+        out.register_hook(lambda g: tracing.mark("backward.deform"))
 
 
 def make_eval_render(*, pipe_cfg, is_6dof: bool = False,

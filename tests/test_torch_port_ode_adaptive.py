@@ -43,6 +43,7 @@ from jax.experimental import ode as JO
 
 from d3gs_tpu.models.deform import DeformFieldSpec, create_deform_field
 from d3gs_tpu.models.deform.ode import odeint_adaptive as jax_adaptive
+from d3gs_tpu_torch import tracing
 from d3gs_tpu_torch.models.deform import fields as F
 from d3gs_tpu_torch.models.deform import ode as O
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
@@ -322,14 +323,14 @@ def test_solve_counts_add_up():
     start and one per iteration (a (N, T) tensor adds its own read)."""
     net = _Poly()
     y0, anchor, ts = _grid("per_sample", 4, seed=9)
-    O.reset_counts()
+    tracing.drain()
     ys = O.odeint_adaptive(net, torch.from_numpy(y0), torch.from_numpy(ts),
                            anchor=torch.from_numpy(anchor))
-    c = O.COUNTS["forward"]
+    c = O.solve_counts("forward")
     assert c.solves == 1 and c.evals == 2 + 6 * c.iterations
     assert c.reads == 1 + c.iterations
     assert c.accepted + c.rejected >= c.iterations > 0
     ys.sum().backward()
-    b = O.COUNTS["backward"]
+    b = O.solve_counts("backward")
     assert b.solves == 4 and b.reads == b.solves + b.iterations
     assert b.evals == 4 + 2 * b.solves + 6 * b.iterations

@@ -185,7 +185,7 @@ def task_halo(mesh, *, x, rows):
     wts = torch.arange(ext.numel(), dtype=ext.dtype).reshape(ext.shape)
     (g,) = torch.autograd.grad((ext * wts.sin()).sum(), [strip])
     return {"ext": ext.detach().numpy(), "grad": g.numpy(),
-            "bytes": dict(comm.BYTES)}
+            "bytes": comm.bytes_moved()}
 
 
 TASKS = {"render": task_render, "baseline_step": task_baseline_step,
