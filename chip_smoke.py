@@ -30,7 +30,13 @@ Phases (any failure exits non-zero):
      (with and without the depth term) relative to its largest gradient at
      that file's tolerances; (3c) the row kernels at the shapes of the
      tools that run them, the copy and the gather bit-equal, the
-     scatter-add within 1e-5 of the largest |sum|;
+     scatter-add within 1e-5 of the largest |sum|; (3d) the fused RK4 step
+     of the 8x256 ODE field (csrc/ode_rk4.cu) at trex's 78,624 points
+     against its plain version and `_rk4_step`, after one step and after
+     the viewer's 8-step integral from 0 to 0.73 (within 1e-5), and a
+     3-substep forward and backward against the checkpointed path, each
+     gradient's gap held to a control's (the checkpointed path with its
+     input moved one ulp);
   4. the main paths, each with the kernels' counts set to 0 just before it
      and read just after:
      4.  render: a D-NeRF-format dataset (bench.py's scene moving by
@@ -129,16 +135,18 @@ Phases (any failure exits non-zero):
      kernels alone (CUDA events and profiler device time) on the bench
      scene and on the train step's own scene, through their wrappers and
      in their plain versions; the row kernels alone beside their library
-     calls and plain versions; one ODE flagship step at k = 10 and its
+     calls and plain versions; the fused RK4 step beside its f32 bound,
+     its plain version and `_rk4_step`; one ODE flagship step at k = 10 and its
      layers, one MLP-kind flagship step, one adaptive ODE flagship step
      with its solver counts, integral and device times;
   6. the card, the blend bounds (from the pixel-record pairs each kernel
      evaluates on the bench scene, counted by `blend_work`, under this
      source's count and without the cull) and the issue-rate model (SASS
      instructions per visit times visits over 4 per clock on 132 SMs), one
-     JSON line of the kernels (the blend kernels' launches from the
-     flagship path, the row kernels' from their tools' paths; the row
-     bounds from the bytes each must move), and the final status line.
+     JSON line of the kernels (the blend kernels' and the fused RK4
+     step's launches from the flagship path, the row kernels' from their
+     tools' paths; the row bounds from the bytes each must move, the RK4
+     step's from its f32 FLOPs), and the final status line.
 It imports nothing of JAX or of the JAX package `d3gs_tpu`.
 """
 from __future__ import annotations
@@ -1316,6 +1324,159 @@ def compare_rows(inp: dict) -> dict:
     return errs
 
 
+# 3d: the fused RK4 step (csrc/ode_rk4.cu) at trex's size, the ODE cells'
+# field (8x256 Blender DeformNetworkODE, nn.Linear's init), positions
+# uniform in [-1.3, 1.3]^3 as the benchmark draws them
+ODE_N = 78_624
+ODE_T1, ODE_STEPS = 0.73, 8       # the viewer's integral from 0 to t
+ODE_INTEGRAL_TOL = 1e-5           # kernel vs plain after it (TF32 anywhere
+#                                   in the trunk reads ~1e-3)
+ODE_GRAD_SUBSTEPS = 3
+# The gradient through the ReLU trunk is ill-conditioned in f32: a change
+# of the state by rounding flips units near their kink. Phase 3d's control
+# is the checkpointed path against itself with the input moved by one ulp
+# (relative 2^-23); the fused path's gradients, whose forward differs by
+# rounding, are held to the control's gap (relative L2 norm of a leaf's
+# difference), times ODE_GRAD_CONTROL_X, and never above ODE_GRAD_TOL
+ODE_GRAD_CONTROL_X = 4.0
+ODE_GRAD_TOL = 1e-3
+
+
+def ode_rk4_inputs(dev, seed: int = 0):
+    """(net, y) of phase 3d."""
+    from d3gs_tpu_torch.models.deform.networks import DeformNetworkODE
+    g = torch.Generator().manual_seed(seed)
+    net = DeformNetworkODE(is_blender=True, generator=g).to(dev)
+    y = (torch.rand(ODE_N, 3, generator=g) * 2.6 - 1.3).to(dev)
+    return net, y
+
+
+def ode_step_flops() -> float:
+    """f32 FLOPs of one fused RK4 step at ODE_N: 4 evaluations of the
+    trunk with the time input folded (PE(x) 63 -> 256, 4 x 256 -> 256,
+    the skip 63 + 256 -> 256, 2 x 256 -> 256, 256 -> 3)."""
+    macs = 63 * 256 + 4 * 256 * 256 + 319 * 256 + 2 * 256 * 256 + 256 * 3
+    return 2.0 * 4 * ODE_N * macs
+
+
+def ode_rk4_check(dev) -> dict:
+    """Phase 3d: the fused RK4 kernel against its plain version
+    (`rk4_step_torch` on the card) and today's `_rk4_step`, after one step
+    and after the viewer's 8-step integral from 0 to 0.73 (within
+    ODE_INTEGRAL_TOL); then a 3-substep forward and backward through
+    `integrate_segment`, fused against checkpointed, the gap of the state's
+    and every parameter's gradient over that leaf's largest (within
+    ODE_GRAD_TOL). Returns the errors and the launches it made."""
+    from unittest import mock
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.ops import ode_rk4 as K
+    net, y = ode_rk4_inputs(dev)
+    reset_counts()
+    # the host times of `integrate_segment`: f32 arithmetic, then floats
+    h1 = torch.tensor(ODE_T1, dtype=torch.float32)
+    step = h1 / ODE_STEPS
+    dt = float(step)
+    with torch.no_grad():
+        one = {"kernel": K.rk4_step_cuda(net, y, 0.0, dt),
+               "plain": K.rk4_step_torch(net, y, 0.0, dt),
+               "rk4": O._rk4_step(net, y, 0.0, dt)}
+        fused = O.odeint_from_zero(net, y, ODE_T1, n_substeps=ODE_STEPS)
+        plain, today = y, y
+        for i in range(ODE_STEPS):
+            t = float(step * i)
+            plain = K.rk4_step_torch(net, plain, t, dt)
+            today = O._rk4_step(net, today, t, dt)
+    torch.cuda.synchronize()
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    out = {"step_vs_plain": err(one["kernel"], one["plain"]),
+           "step_vs_rk4": err(one["kernel"], one["rk4"]),
+           "integral_vs_plain": err(fused, plain),
+           "integral_vs_rk4": err(fused, today),
+           "plain_vs_rk4": err(plain, today),
+           "integral_moved": float((fused - y).abs().max())}
+    log(f"[3d] ode_rk4 at N = {ODE_N}: max |difference| after one step "
+        f"{out['step_vs_plain']:.3e} vs plain, {out['step_vs_rk4']:.3e} vs "
+        f"_rk4_step; after {ODE_STEPS} steps to t = {ODE_T1} "
+        f"{out['integral_vs_plain']:.3e} vs plain, "
+        f"{out['integral_vs_rk4']:.3e} vs _rk4_step (plain vs _rk4_step "
+        f"{out['plain_vs_rk4']:.3e}; the integral moves the points by up "
+        f"to {out['integral_moved']:.3e})")
+    if not (torch.isfinite(fused).all()
+            and max(out["integral_vs_plain"], out["integral_vs_rk4"])
+            <= ODE_INTEGRAL_TOL):
+        raise AssertionError(f"ode_rk4 differs from its plain version: "
+                             f"{out}")
+
+    c = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    params = list(net.parameters())
+
+    def grads(y_in):
+        y0 = y_in.clone().requires_grad_()
+        ys = O.integrate_segment(net, y0, 0.1, 0.55, ODE_GRAD_SUBSTEPS)
+        return torch.autograd.grad((ys * c).sum(), [y0] + params)
+    got = grads(y)
+    with mock.patch.object(K, "DEVICES", ()):     # today's path on the card
+        want = grads(y)
+        moved = grads(y * (1 + 2.0 ** -23))
+    torch.cuda.synchronize()
+
+    def gaps(a_set, b_set):
+        """Per leaf: max |a - b| over max |b|, and ||a - b|| / ||b||."""
+        return ([float((a - b).abs().max() / b.abs().max()) for a, b in
+                 zip(a_set, b_set)],
+                [float((a - b).norm() / b.norm()) for a, b in
+                 zip(a_set, b_set)])
+    g_max, g_l2 = gaps(got, want)
+    c_max, c_l2 = gaps(moved, want)
+    out.update(grad_gap_state=g_max[0], grad_gap_params=max(g_max[1:]),
+               grad_l2_state=g_l2[0], grad_l2_params=max(g_l2[1:]),
+               control_gap_state=c_max[0],
+               control_gap_params=max(c_max[1:]),
+               control_l2_state=c_l2[0], control_l2_params=max(c_l2[1:]),
+               launches=K.launch_counts()["ode_rk4"])
+    log(f"[3d] {ODE_GRAD_SUBSTEPS}-substep forward + backward, fused vs "
+        f"checkpointed, state / worst parameter: largest gap (of the "
+        f"leaf's largest) {g_max[0]:.3e} / {max(g_max[1:]):.3e}, relative "
+        f"L2 {g_l2[0]:.3e} / {max(g_l2[1:]):.3e}; control (checkpointed, "
+        f"input moved one ulp) {c_max[0]:.3e} / {max(c_max[1:]):.3e}, L2 "
+        f"{c_l2[0]:.3e} / {max(c_l2[1:]):.3e}; ode_rk4 launches in 3d "
+        f"{out['launches']}")
+    for a, b in zip(g_l2, c_l2):
+        if not a <= min(ODE_GRAD_TOL, max(ODE_GRAD_CONTROL_X * b, 1e-6)):
+            raise AssertionError(f"fused RK4 gradients differ: {g_l2} "
+                                 f"against the control's {c_l2}")
+    return out
+
+
+def ode_rk4_timings(dev) -> dict:
+    """Phase 5: one RK4 step at ODE_N, no grad, by CUDA events: the kernel
+    (through its wrapper: the pack is cached, the time biases are computed
+    each call), its plain version and today's `_rk4_step`; the kernel's
+    bound is its f32 FLOPs over the f32 peak, and its device time from the
+    profiler."""
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.ops import ode_rk4 as K
+    net, y = ode_rk4_inputs(dev)
+    dt = ODE_T1 / ODE_STEPS
+    with torch.no_grad():
+        t = {"ms": cuda_ms(lambda: K.rk4_step_cuda(net, y, 0.0, dt), 20),
+             "plain_ms": cuda_ms(lambda: K.rk4_step_torch(net, y, 0.0, dt),
+                                 5),
+             "rk4_ms": cuda_ms(lambda: O._rk4_step(net, y, 0.0, dt), 5),
+             "bound_ms": 1e3 * ode_step_flops() / F32_FLOPS,
+             "profile": profile(lambda: K.rk4_step_cuda(net, y, 0.0, dt),
+                                calls=5, top=4)}
+    t["device_ms"] = t["profile"]["device_ms_per_call"]
+    t["share_of_f32_peak"] = t["bound_ms"] / t["ms"]
+    log(f"[5] ode_rk4 at N = {ODE_N}: {t['ms']:.3f} ms a step (device "
+        f"{t['device_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
+        f"({100 * t['share_of_f32_peak']:.1f} % of the f32 peak), plain "
+        f"{t['plain_ms']:.3f} ms, _rk4_step {t['rk4_ms']:.3f} ms; "
+        f"{json.dumps(t['profile'])}")
+    return t
+
+
 def tool_paths() -> dict:
     """Phase 4c: the three tools through their main(), each with the row
     kernels' counts set to 0 just before it and read just after; each must
@@ -1366,6 +1527,7 @@ def flagship_main_path(dev, data, mp) -> dict:
     from d3gs_tpu_torch.models.deform.fields import (create_deform_field,
                                                      load_deform_weights)
     from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops import ode_rk4 as K
     from d3gs_tpu_torch.train.__main__ import main as train_main
     from d3gs_tpu_torch.train.flagship import pick_field_spec
     pts, cols = bench_points()
@@ -1387,7 +1549,7 @@ def flagship_main_path(dev, data, mp) -> dict:
         "--test_iterations", str(it), "--save_iterations", str(it)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = B.launch_counts()
+    launches = {**B.launch_counts(), **K.launch_counts()}
     log(f"[4d] train.main --trainer flagship: {it} iterations x {k} cameras "
         f"in {wall:.1f} s; kernel launches {launches}; losses "
         f"{result.losses}; PSNR {result.test_psnrs}; densify "
@@ -1395,6 +1557,9 @@ def flagship_main_path(dev, data, mp) -> dict:
         f"{result.deform_state.count}")
     if result.field.spec.kind != "ode" or result.field.spec.n_substeps != 4:
         raise AssertionError(f"flagship field: {result.field.spec}")
+    if launches["ode_rk4"] < it:
+        raise AssertionError(f"the 8x256 ODE field ran the fused RK4 step "
+                             f"{launches['ode_rk4']} times in {it} steps")
     if launches["blend_bwd"] < it * k:
         raise AssertionError(f"blend_bwd launched {launches['blend_bwd']} "
                              f"times for {it} steps of {k} cameras")
@@ -4034,6 +4199,8 @@ def main() -> int:
     # ---- 3c. the row kernels vs plain at the tools' shapes ---------------
     rows_in = row_inputs(dev)
     row_errs = compare_rows(rows_in)
+    # ---- 3d. the fused RK4 step vs plain at trex's size ------------------
+    ode_errs = ode_rk4_check(dev)
 
     with tempfile.TemporaryDirectory(prefix="d3gs_smoke_") as tmp:
         # ---- 4. main path: render ---------------------------------------
@@ -4128,6 +4295,7 @@ def main() -> int:
     log("[5] profile of one train step: " + json.dumps(tprof))
     rt = row_timings(rows_in)
     log("[5] row kernels at the tools' shapes: " + json.dumps(rt))
+    ot = ode_rk4_timings(dev)
     ft, fprof = flagship_timings(dev, state, bg)
     ft["card"] = smi
     log("[5] flagship steps: " + json.dumps(ft))
@@ -4182,7 +4350,14 @@ def main() -> int:
     } for name, replaces in (("row_copy", "tools/exp_r5_reduce.py:146"),
                              ("row_gather", "tools/exp_vmem_gather.py:33"),
                              ("scatter_add_rows",
-                              "tools/exp_vmem_scatter.py:31"))]
+                              "tools/exp_vmem_scatter.py:31"))] + [{
+        "name": "ode_rk4", "route": "cuda",
+        "source": "d3gs_tpu_torch/csrc/ode_rk4.cu", "replaces": None,
+        "launches": launches["ode_rk4"],
+        "max_abs_err": ode_errs["integral_vs_plain"], "ms": ot["ms"],
+        "plain_ms": ot["plain_ms"], "bound_ms": ot["bound_ms"],
+        "bound_by": "ops", "library_ms": None,
+    }]
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,11 @@ torchdiffeq / torchode, scene/deform_model.py:26-30,61-78,196-198):
     backward re-runs one substep's four evaluations at a time. Without it,
     k = 10 cameras at 43,132 Gaussians keep ~144 evaluations × 9 layers ×
     256 × 4 B × N ≈ 57 GB of activations; with it about 1.6 GB;
+  * a substep of the 8x256 `DeformNetworkODE` on a CUDA f32 state with host
+    times runs as one kernel launch (`ops/ode_rk4.py::engages`): directly
+    without autograd, else through `_FusedRK4`, which keeps the same
+    (N, D) state and re-runs `_rk4_step` in the backward as the checkpoint
+    does;
   * time grids are a shared (T,) grid (host numbers: the time arithmetic
     runs in float32 on the host, and a zero-length segment returns its
     state untouched) or per-sample (N, T) grids (torchode's parallel-IVP
@@ -31,20 +36,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ... import tracing
+from ...ops import ode_rk4
 
 
-def _rk4_step(f: Callable, y: torch.Tensor, t, dt):
-    """One RK4 step; t and dt are numbers or per-sample (N, 1) tensors.
-    Counts its 4 evaluations under `ode.evals.forward` while autograd
-    records, `ode.evals.nograd` while it does not, and
-    `ode.evals.recompute` when a checkpointed step runs again inside
-    autograd's backward."""
+def _count_step() -> None:
+    """Count a step's 4 evaluations under `ode.evals.forward` while
+    autograd records, `ode.evals.nograd` while it does not, and
+    `ode.evals.recompute` when a step runs again inside autograd's
+    backward."""
     if torch._C._current_graph_task_id() != -1:
         tracing.count("ode.evals.recompute", 4)
     elif torch.is_grad_enabled():
         tracing.count("ode.evals.forward", 4)
     else:
         tracing.count("ode.evals.nograd", 4)
+
+
+def _rk4_step(f: Callable, y: torch.Tensor, t, dt):
+    """One RK4 step; t and dt are numbers or per-sample (N, 1) tensors.
+    Counted by `_count_step`."""
+    _count_step()
     k1 = f(t, y)
     k2 = f(t + dt * 0.5, y + 0.5 * dt * k1)
     k3 = f(t + dt * 0.5, y + 0.5 * dt * k2)
@@ -52,8 +63,41 @@ def _rk4_step(f: Callable, y: torch.Tensor, t, dt):
     return y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
+class _FusedRK4(torch.autograd.Function):
+    """A fused RK4 step under autograd, with the contract of
+    `checkpoint(_rk4_step, ..., use_reentrant=False)`: the forward runs
+    `ops/ode_rk4.py::rk4_step` and keeps only y; the backward runs
+    `_rk4_step` again on y and returns the vector-Jacobian products of y
+    and of every parameter of the net (the inputs after y)."""
+
+    @staticmethod
+    def forward(ctx, net, t, dt, y, *params):
+        ctx.net, ctx.t, ctx.dt = net, t, dt
+        ctx.save_for_backward(y)
+        return ode_rk4.rk4_step(net, y, t, dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            y_ = y.detach().requires_grad_(need[0])
+            out = _rk4_step(ctx.net, y_, ctx.t, ctx.dt)
+            wrt = [x for x, n in zip([y_, *ctx.net.parameters()], need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        return (None, None, None, *(next(grads) if n else None for n in need))
+
+
 def _substep(f: Callable, y: torch.Tensor, t, dt) -> torch.Tensor:
-    """One RK4 step, checkpointed when autograd records."""
+    """One RK4 step: fused where `ode_rk4.engages` (counted besides under
+    `ode.evals.fused`), else `_rk4_step`, checkpointed when autograd
+    records."""
+    if ode_rk4.engages(f, y, t, dt):
+        _count_step()
+        tracing.count("ode.evals.fused", 4)
+        if torch.is_grad_enabled():
+            return _FusedRK4.apply(f, t, dt, y, *f.parameters())
+        return ode_rk4.rk4_step(f, y, t, dt)
     if torch.is_grad_enabled():
         return checkpoint(_rk4_step, f, y, t, dt, use_reentrant=False,
                           preserve_rng_state=False)
