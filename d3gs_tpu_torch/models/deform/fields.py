@@ -92,10 +92,10 @@ class DeformField:
             return lambda t, y: self.net(t, y, anchor)
         return self.net
 
-    def _span(self, times: int):
+    def _span(self, times: int, **attrs):
         """The span `deform` of one call over `times` times."""
         return tracing.span("deform", kind=self.spec.kind,
-                            solver=self.spec.solver, times=times)
+                            solver=self.spec.solver, times=times, **attrs)
 
     def _anchor(self, xyz, y0):
         """The `simple_start` anchor (the trajectory's start state)."""
@@ -109,8 +109,8 @@ class DeformField:
         d_scale); ODE kinds integrate xyz from 0 to t (2·n_substeps RK4
         steps, or the adaptive solve) and return absolute positions with
         zero d_rot, d_scale. Differentiable: the render paths call it under
-        `torch.no_grad()`."""
-        with self._span(1):
+        `torch.no_grad()`. Its span `deform` records t as `t`."""
+        with self._span(1, t=t):
             if self.spec.kind in MLP_KINDS:
                 return self.net(xyz, t)
             anchor = self._anchor(xyz, y0)

@@ -7,6 +7,12 @@ the same cameras), a static warm-up before `warm_up`, AST time noise for
 non-Blender scenes, the SH ramp every 1000 iterations, and, after each
 step, report → save → densify / prune / opacity reset on the host cadence,
 with the padded buffer grown when densification fills 90 % of it.
+
+AST (annealing smooth training) is public: `ast_time` is the time the field
+sees, `make_deform_fn` the trainers' `deform_fn` that evaluates the field
+there and counts `deform.ast` for each jittered evaluation.
+`train_baseline` and the benchmark's real-scene loop
+(`benchmark/loops/train_real.py`) share it.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from random import Random
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import ModelParams, OptimizationParams, PipelineParams
 from ..data.cameras import Camera
 from ..data.scene import save_gaussians_ply
@@ -52,6 +59,36 @@ def subsample_stack(cams: list[Camera], sequence_length: int) -> list[Camera]:
         return [stack[0]]
     step = (total - 1) / (sequence_length - 1)
     return [stack[int(round(i * step))] for i in range(sequence_length)]
+
+
+def ast_time(fid, iteration, generator, time_interval: float,
+             is_blender: bool):
+    """The time the field sees in a training step (train_baseline.py:
+    112-115): `fid` itself for Blender scenes and without a generator (the
+    evaluation renders), else fid + N(0, 1) · time_interval ·
+    linear_noise(iteration), the noise annealed linearly from 0.1 to 1e-15
+    over 20,000 iterations, one draw from `generator` a call."""
+    if is_blender or generator is None:
+        return fid
+    return fid + float(torch.randn((), generator=generator)) \
+        * time_interval * linear_noise(
+            iteration, lr_init=0.1, lr_final=1e-15, lr_delay_mult=0.01,
+            max_steps=20000)
+
+
+def make_deform_fn(field, model_cfg, time_interval: float):
+    """-> deform_fn(xyz, fid, iteration, generator) -> (dx, dr, ds) of
+    `make_train_step` / `make_eval_render`: `field.step` at `ast_time`
+    (`time_interval` is one over the training stack's length), counting
+    `deform.ast` once for each evaluation whose time was jittered."""
+
+    def deform_fn(xyz, fid, iteration, generator):
+        if not model_cfg.is_blender and generator is not None:
+            tracing.count("deform.ast")
+        return field.step(xyz, ast_time(fid, iteration, generator,
+                                        time_interval, model_cfg.is_blender))
+
+    return deform_fn
 
 
 def train_baseline(
@@ -100,18 +137,8 @@ def train_baseline(
                     device=dev)
 
     stack_template = subsample_stack(train_cams, opt_cfg.sequence_length)
-    time_interval = 1.0 / max(len(stack_template), 1)
-
-    def deform_fn(xyz, fid, iteration, generator):
-        t = fid
-        if not model_cfg.is_blender and generator is not None:
-            # AST noise (train_baseline.py:112-115)
-            t = fid + float(torch.randn((), generator=generator)) \
-                * time_interval * linear_noise(
-                    iteration, lr_init=0.1, lr_final=1e-15,
-                    lr_delay_mult=0.01, max_steps=20000)
-        return field.step(xyz, t)
-
+    deform_fn = make_deform_fn(field, model_cfg,
+                               1.0 / max(len(stack_template), 1))
     warm_step = make_train_step(opt_cfg=opt_cfg, pipe_cfg=pipe_cfg)
     deform_step = make_train_step(
         opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, is_6dof=model_cfg.is_6dof,
