@@ -36,7 +36,9 @@ Phases (any failure exits non-zero):
      the viewer's 8-step integral from 0 to 0.73 (within 1e-5), and a
      3-substep forward and backward against the checkpointed path, each
      gradient's gap held to a control's (the checkpointed path with its
-     input moved one ulp);
+     input moved one ulp); the backward kernel (csrc/ode_rk4_bwd.cu) of
+     one step against its plain version, held to the same kind of
+     control, and twice on one input, bit for bit;
   4. the main paths, each with the kernels' counts set to 0 just before it
      and read just after:
      4.  render: a D-NeRF-format dataset (bench.py's scene moving by
@@ -136,7 +138,9 @@ Phases (any failure exits non-zero):
      scene and on the train step's own scene, through their wrappers and
      in their plain versions; the row kernels alone beside their library
      calls and plain versions; the fused RK4 step beside its f32 bound,
-     its plain version and `_rk4_step`; one ODE flagship step at k = 10 and its
+     its plain version and `_rk4_step`, and its backward kernels beside
+     theirs (three steps' f32 FLOPs), their plain version and `_rk4_step`
+     again under autograd; one ODE flagship step at k = 10 and its
      layers, one MLP-kind flagship step, one adaptive ODE flagship step
      with its solver counts, integral and device times;
   6. the card, the blend bounds (from the pixel-record pairs each kernel
@@ -144,9 +148,10 @@ Phases (any failure exits non-zero):
      source's count and without the cull) and the issue-rate model (SASS
      instructions per visit times visits over 4 per clock on 132 SMs), one
      JSON line of the kernels (the blend kernels' and the fused RK4
-     step's launches from the flagship path, the row kernels' from their
-     tools' paths; the row bounds from the bytes each must move, the RK4
-     step's from its f32 FLOPs), and the final status line.
+     step's and its backward's launches from the flagship path, the row
+     kernels' from their tools' paths; the row bounds from the bytes each
+     must move, the RK4 step's and its backward's from their f32 FLOPs),
+     and the final status line.
 It imports nothing of JAX or of the JAX package `d3gs_tpu`.
 """
 from __future__ import annotations
@@ -1351,6 +1356,46 @@ def ode_rk4_inputs(dev, seed: int = 0):
     return net, y
 
 
+def ode_vjp_check(dev, net, y, dt: float) -> dict:
+    """Phase 3d: the backward kernel (`rk4_step_vjp_cuda`) of one RK4 step
+    at ODE_N against its plain version on the card, each leaf's gap
+    (relative L2) held to the control's, the plain version against itself
+    with the input moved by one ulp, as the integral's gradients are; then
+    the kernel twice on the same input, bit for bit."""
+    from d3gs_tpu_torch.ops import ode_rk4 as K
+    gc = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(dev)
+    before = K.launch_counts()["ode_rk4_bwd"]
+    first = K.rk4_step_vjp_cuda(net, y, 0.1, dt, gc)
+    again = K.rk4_step_vjp_cuda(net, y, 0.1, dt, gc)
+    plain = K.rk4_step_vjp_torch(net, y, 0.1, dt, gc)
+    moved = K.rk4_step_vjp_torch(net, y * (1 + 2.0 ** -23), 0.1, dt, gc)
+    torch.cuda.synchronize()
+    flat = lambda r: [r[0], *r[1]]  # noqa: E731
+    l2 = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    gap = [l2(a, b) for a, b in zip(flat(first), flat(plain))]
+    control = [l2(a, b) for a, b in zip(flat(moved), flat(plain))]
+    same = all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
+    out = {"vjp_l2_state": gap[0], "vjp_l2_params": max(gap[1:]),
+           "vjp_control_state": control[0],
+           "vjp_control_params": max(control[1:]), "vjp_bitwise": same,
+           "vjp_launches": K.launch_counts()["ode_rk4_bwd"] - before}
+    log(f"[3d] ode_rk4_bwd at N = {ODE_N}, one step: relative L2 gap to "
+        f"rk4_step_vjp_torch, state / worst parameter {gap[0]:.3e} / "
+        f"{max(gap[1:]):.3e}; control (plain, input moved one ulp) "
+        f"{control[0]:.3e} / {max(control[1:]):.3e}; two runs bit-equal: "
+        f"{same}; launches {out['vjp_launches']}")
+    for a, b in zip(gap, control):
+        if not a <= min(ODE_GRAD_TOL, max(ODE_GRAD_CONTROL_X * b, 1e-6)):
+            raise AssertionError(f"ode_rk4_bwd differs from its plain "
+                                 f"version: {gap} against the control's "
+                                 f"{control}")
+    if not same or out["vjp_launches"] != 2:
+        raise AssertionError(f"ode_rk4_bwd: bit-equal {same}, launches "
+                             f"{out['vjp_launches']} (2 expected)")
+    return out
+
+
 def ode_step_flops() -> float:
     """f32 FLOPs of one fused RK4 step at ODE_N: 4 evaluations of the
     trunk with the time input folded (PE(x) 63 -> 256, 4 x 256 -> 256,
@@ -1366,7 +1411,8 @@ def ode_rk4_check(dev) -> dict:
     ODE_INTEGRAL_TOL); then a 3-substep forward and backward through
     `integrate_segment`, fused against checkpointed, the gap of the state's
     and every parameter's gradient over that leaf's largest (within
-    ODE_GRAD_TOL). Returns the errors and the launches it made."""
+    ODE_GRAD_TOL), whose backward is the fused VJP kernel; and
+    `ode_vjp_check`. Returns the errors and the launches it made."""
     from unittest import mock
     from d3gs_tpu_torch.models.deform import ode as O
     from d3gs_tpu_torch.ops import ode_rk4 as K
@@ -1434,18 +1480,24 @@ def ode_rk4_check(dev) -> dict:
                control_gap_state=c_max[0],
                control_gap_params=max(c_max[1:]),
                control_l2_state=c_l2[0], control_l2_params=max(c_l2[1:]),
-               launches=K.launch_counts()["ode_rk4"])
+               launches=K.launch_counts()["ode_rk4"],
+               bwd_launches=K.launch_counts()["ode_rk4_bwd"])
     log(f"[3d] {ODE_GRAD_SUBSTEPS}-substep forward + backward, fused vs "
         f"checkpointed, state / worst parameter: largest gap (of the "
         f"leaf's largest) {g_max[0]:.3e} / {max(g_max[1:]):.3e}, relative "
         f"L2 {g_l2[0]:.3e} / {max(g_l2[1:]):.3e}; control (checkpointed, "
         f"input moved one ulp) {c_max[0]:.3e} / {max(c_max[1:]):.3e}, L2 "
         f"{c_l2[0]:.3e} / {max(c_l2[1:]):.3e}; ode_rk4 launches in 3d "
-        f"{out['launches']}")
+        f"{out['launches']}, ode_rk4_bwd {out['bwd_launches']}")
     for a, b in zip(g_l2, c_l2):
         if not a <= min(ODE_GRAD_TOL, max(ODE_GRAD_CONTROL_X * b, 1e-6)):
             raise AssertionError(f"fused RK4 gradients differ: {g_l2} "
                                  f"against the control's {c_l2}")
+    if out["bwd_launches"] != ODE_GRAD_SUBSTEPS:
+        raise AssertionError(f"the fused backward launched ode_rk4_bwd "
+                             f"{out['bwd_launches']} times for "
+                             f"{ODE_GRAD_SUBSTEPS} substeps")
+    out.update(ode_vjp_check(dev, net, y, dt))
     return out
 
 
@@ -1473,6 +1525,48 @@ def ode_rk4_timings(dev) -> dict:
         f"{t['device_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
         f"({100 * t['share_of_f32_peak']:.1f} % of the f32 peak), plain "
         f"{t['plain_ms']:.3f} ms, _rk4_step {t['rk4_ms']:.3f} ms; "
+        f"{json.dumps(t['profile'])}")
+    t["bwd"] = ode_vjp_timings(dev, net, y, dt)
+    return t
+
+
+def ode_vjp_timings(dev, net, y, dt: float) -> dict:
+    """Phase 5: the VJP of one RK4 step at ODE_N by CUDA events: the
+    backward kernels through their wrapper (the time biases and the
+    parameter gradients' assembly included), its plain version, and the
+    path they replace, `_rk4_step` run again under autograd and its VJPs
+    (cuBLAS products), as the library's yardstick; the bound is three
+    forwards' f32 FLOPs over the f32 peak. The kernels' device time by
+    the profiler."""
+    from d3gs_tpu_torch.models.deform import ode as O
+    from d3gs_tpu_torch.ops import ode_rk4 as K
+    gc = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(dev)
+    params = list(net.parameters())
+
+    def library():
+        with torch.enable_grad():
+            y_ = y.detach().requires_grad_()
+            out = O._rk4_step(net, y_, 0.1, dt)
+            return torch.autograd.grad(out, [y_, *params], gc)
+    kernel = lambda: K.rk4_step_vjp_cuda(net, y, 0.1, dt, gc)  # noqa: E731
+    t = {"ms": cuda_ms(kernel, 10),
+         "plain_ms": cuda_ms(
+             lambda: K.rk4_step_vjp_torch(net, y, 0.1, dt, gc), 3),
+         "library_ms": cuda_ms(library, 5),
+         "bound_ms": 3e3 * ode_step_flops() / F32_FLOPS,
+         "profile": profile(kernel, calls=5, top=8)}
+    torch.cuda.reset_peak_memory_stats()
+    kernel()
+    torch.cuda.synchronize()
+    t["peak_bytes"] = torch.cuda.max_memory_allocated()
+    t["device_ms"] = t["profile"]["device_ms_per_call"]
+    t["share_of_f32_peak"] = t["bound_ms"] / t["ms"]
+    log(f"[5] ode_rk4_bwd at N = {ODE_N}: {t['ms']:.3f} ms a step (device "
+        f"{t['device_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
+        f"({100 * t['share_of_f32_peak']:.1f} % of the f32 peak), plain "
+        f"{t['plain_ms']:.3f} ms, _rk4_step + autograd {t['library_ms']:.3f}"
+        f" ms; peak {t['peak_bytes'] / 1e9:.2f} GB; "
         f"{json.dumps(t['profile'])}")
     return t
 
@@ -1560,6 +1654,9 @@ def flagship_main_path(dev, data, mp) -> dict:
     if launches["ode_rk4"] < it:
         raise AssertionError(f"the 8x256 ODE field ran the fused RK4 step "
                              f"{launches['ode_rk4']} times in {it} steps")
+    if launches["ode_rk4_bwd"] == 0:
+        raise AssertionError("the flagship's backward never ran the fused "
+                             "RK4 step's VJP kernel")
     if launches["blend_bwd"] < it * k:
         raise AssertionError(f"blend_bwd launched {launches['blend_bwd']} "
                              f"times for {it} steps of {k} cameras")
@@ -4357,6 +4454,13 @@ def main() -> int:
         "max_abs_err": ode_errs["integral_vs_plain"], "ms": ot["ms"],
         "plain_ms": ot["plain_ms"], "bound_ms": ot["bound_ms"],
         "bound_by": "ops", "library_ms": None,
+    }, {
+        "name": "ode_rk4_bwd", "route": "cuda",
+        "source": "d3gs_tpu_torch/csrc/ode_rk4_bwd.cu", "replaces": None,
+        "launches": launches["ode_rk4_bwd"],
+        "max_rel_l2_err": ode_errs["vjp_l2_params"], "ms": ot["bwd"]["ms"],
+        "plain_ms": ot["bwd"]["plain_ms"], "bound_ms": ot["bwd"]["bound_ms"],
+        "bound_by": "ops", "library_ms": ot["bwd"]["library_ms"],
     }]
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -14,8 +14,8 @@ torchdiffeq / torchode, scene/deform_model.py:26-30,61-78,196-198):
   * a substep of the 8x256 `DeformNetworkODE` on a CUDA f32 state with host
     times runs as one kernel launch (`ops/ode_rk4.py::engages`): directly
     without autograd, else through `_FusedRK4`, which keeps the same
-    (N, D) state and re-runs `_rk4_step` in the backward as the checkpoint
-    does;
+    (N, D) state as the checkpoint does and whose backward is one call of
+    the step's fused vector-Jacobian product (`ode_rk4.rk4_step_vjp`);
   * time grids are a shared (T,) grid (host numbers: the time arithmetic
     runs in float32 on the host, and a zero-length segment returns its
     state untouched) or per-sample (N, T) grids (torchode's parallel-IVP
@@ -66,9 +66,10 @@ def _rk4_step(f: Callable, y: torch.Tensor, t, dt):
 class _FusedRK4(torch.autograd.Function):
     """A fused RK4 step under autograd, with the contract of
     `checkpoint(_rk4_step, ..., use_reentrant=False)`: the forward runs
-    `ops/ode_rk4.py::rk4_step` and keeps only y; the backward runs
-    `_rk4_step` again on y and returns the vector-Jacobian products of y
-    and of every parameter of the net (the inputs after y)."""
+    `ops/ode_rk4.py::rk4_step` and keeps only y; the backward recomputes
+    the step and returns the vector-Jacobian products of y and of every
+    parameter of the net (the inputs after y) by `ode_rk4.rk4_step_vjp`,
+    counted as a fused recompute (`_count_step`, `ode.evals.fused`)."""
 
     @staticmethod
     def forward(ctx, net, t, dt, y, *params):
@@ -80,12 +81,11 @@ class _FusedRK4(torch.autograd.Function):
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
         need = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
-            y_ = y.detach().requires_grad_(need[0])
-            out = _rk4_step(ctx.net, y_, ctx.t, ctx.dt)
-            wrt = [x for x, n in zip([y_, *ctx.net.parameters()], need) if n]
-            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        return (None, None, None, *(next(grads) if n else None for n in need))
+        _count_step()
+        tracing.count("ode.evals.fused", 4)
+        gy, grads = ode_rk4.rk4_step_vjp(ctx.net, y, ctx.t, ctx.dt, g,
+                                         need[1:])
+        return (None, None, None, gy if need[0] else None, *grads)
 
 
 def _substep(f: Callable, y: torch.Tensor, t, dt) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """The fused RK4 step of the 8x256 ODE dynamics net (`d3gs_tpu_torch/ops/
-ode_rk4.py`, kernel `csrc/ode_rk4.cu`) on the CPU: its plain version
-against today's `_rk4_step`, the autograd Function of a fused substep
-against the checkpointed path, the rule by which `_substep` takes the
-fused path, and the evaluation counters. The kernel itself runs only on
-the card (`chip_smoke.py`, phase 3d); here the fused path is made to run
-on CPU states by adding "cpu" to `ode_rk4.DEVICES`, where it takes the
-plain version."""
+ode_rk4.py`, kernels `csrc/ode_rk4.cu` and `csrc/ode_rk4_bwd.cu`) on the
+CPU: its plain version against today's `_rk4_step`, the plain version of
+its vector-Jacobian product against autograd through `_rk4_step`, the
+autograd Function of a fused substep against the checkpointed path, the
+rule by which `_substep` takes the fused path, and the evaluation
+counters. The kernels themselves run only on the card (`chip_smoke.py`,
+phase 3d); here the fused path is made to run on CPU states by adding
+"cpu" to `ode_rk4.DEVICES`, where it takes the plain versions."""
 from __future__ import annotations
 
 import pytest
@@ -68,7 +69,7 @@ def test_time_biases_fold_the_time_input():
     pk = K._packed(net)
     t = 0.37
     with torch.no_grad():
-        tb = K.time_biases(net, pk, [t], y)
+        tb = K.time_biases(net, [t], y)
         t_emb = net.timenet[1](torch.relu(net.timenet[0](
             positional_encoding(torch.full((5, 1), t), net.t_multires))))
         x_emb = positional_encoding(y, K.MULTIRES)
@@ -115,7 +116,9 @@ def test_fused_substep_gradients_match_checkpoint(monkeypatch):
     near their kink. So each leaf's gap (relative L2) is held to the
     control's, the checkpointed path against itself with the input moved
     by one ulp (2e-3 for the state, 4e-5 to 1.4e-3 for the parameters;
-    the fused gaps read 7-30 times less), and to 1e-3."""
+    the fused gaps read 3-8 times less: the fused backward differentiates
+    the kernel's form of the net, whose rounding differs), and to 1e-3.
+    The fused backward is the step's VJP, counted as a fused recompute."""
     net = _net(is_blender=True, output_scale=0.8)
     y0 = _state()
     ys_ref, g_ref = _loss_and_grads(net, y0, GRID)
@@ -126,7 +129,7 @@ def test_fused_substep_gradients_match_checkpoint(monkeypatch):
     ys, g = _loss_and_grads(net, y0, GRID)
     _, counts = tracing.drain()
     evals = 4 * SUBSTEPS * (len(GRID) - 1)
-    assert counts["ode.evals.fused"] == evals
+    assert counts["ode.evals.fused"] == 2 * evals
     assert counts["ode.evals.forward"] == evals
     assert counts["ode.evals.recompute"] == evals
     assert float((ys - ys_ref).abs().max()) <= 1e-6
@@ -180,7 +183,8 @@ def test_dispatch_rule(case, monkeypatch):
     counts = tracing.counters()
     engaged = case == "qualifies"
     assert ("ode.evals.fused" in counts) == engaged
-    assert K.launch_counts() == {"ode_rk4": 0}   # the plain version
+    # the plain versions
+    assert K.launch_counts() == {"ode_rk4": 0, "ode_rk4_bwd": 0}
     if case == "adaptive":
         assert "ode.evals.forward" not in counts and not checkpoints
     else:
@@ -193,8 +197,8 @@ def test_dispatch_rule(case, monkeypatch):
 def test_counters(grad, monkeypatch):
     """A fused step counts its 4 evaluations under the old names
     (`ode.evals.nograd`, or `.forward` and `.recompute` in the backward)
-    and again under `ode.evals.fused`; the backward's recompute runs the
-    plain step and is not fused."""
+    and again under `ode.evals.fused`, the backward's recompute too: it
+    runs inside the fused VJP."""
     monkeypatch.setattr(K, "DEVICES", ("cuda", "cpu"))
     net = _net()
     y0 = _state(n=20).requires_grad_(grad)
@@ -211,7 +215,7 @@ def test_counters(grad, monkeypatch):
                       "ode.evals.fused": 4 * steps}
     y.sum().backward()
     assert tracing.counters() == {"ode.evals.forward": 4 * steps,
-                                  "ode.evals.fused": 4 * steps,
+                                  "ode.evals.fused": 8 * steps,
                                   "ode.evals.recompute": 4 * steps}
 
 
@@ -224,3 +228,85 @@ def test_wrapper_checks_its_inputs():
         K.rk4_step_torch(net, y.double(), 0.0, 0.1)
     with pytest.raises(ValueError, match="DeformNetworkODE"):
         K.rk4_step_torch(_net(W=128), y, 0.0, 0.1)
+
+
+def _autograd_vjp(net, y, t, dt, g):
+    """dL/dy and every parameter's dL/dp through today's `_rk4_step`."""
+    y_ = y.clone().requires_grad_()
+    out = O._rk4_step(net, y_, t, dt)
+    return torch.autograd.grad(out, [y_, *net.parameters()], g)
+
+
+@pytest.mark.parametrize("is_blender", [True, False],
+                         ids=["blender", "pe_time"])
+@pytest.mark.parametrize("scale", [1.0, 0.6])
+@pytest.mark.parametrize("n", [N, 37])
+def test_plain_vjp_matches_autograd(is_blender, scale, n):
+    """`rk4_step_vjp_torch` (the kernel's form: folded time bias, split
+    skip, the reverse sweep by hand) against autograd through `_rk4_step`:
+    dL/dy and every leaf, the time net's included. The forwards differ by
+    rounding, which flips ReLU units at their kink, so each leaf's gap
+    (relative L2) is held to the control's, autograd against itself with
+    the input moved by one ulp (4e-6 to 9e-3 here), or to 1e-5, and to
+    1e-2. The gaps read ~3e-7, but 1.8e-3 in the PE-time net at scale 1
+    and N = 300, where a unit sits at its kink."""
+    net = _net(is_blender=is_blender, output_scale=scale)
+    y = _state(n=n)
+    g = torch.randn((n, 3), generator=torch.Generator().manual_seed(5))
+    t, dt = 0.35, 0.0375
+    want = _autograd_vjp(net, y, t, dt, g)
+    moved = _autograd_vjp(net, y * (1 + 2.0 ** -23), t, dt, g)
+    gy, grads = K.rk4_step_vjp_torch(net, y, t, dt, g)
+    got = [gy, *grads]
+    names = ["y"] + [name for name, _ in net.named_parameters()]
+    assert len(got) == len(want) == (23 if is_blender else 19)
+    for name, a, b, c in zip(names, got, want, moved):
+        assert a.shape == b.shape, name
+        gap = float((a - b).norm() / b.norm())
+        control = float((c - b).norm() / b.norm())
+        assert gap <= min(1e-2, max(1e-5, control)), (name, gap, control)
+
+
+@pytest.mark.parametrize("case", ["params_only", "state_only", "frozen_time",
+                                  "output_layer_only"])
+def test_fused_backward_needs_subsets(case, monkeypatch):
+    """The fused substep's Function under `needs_input_grad` subsets: no
+    gradient of the state, none of the parameters, the time net and the
+    time blocks frozen, and only the output layer's. What is asked for
+    matches the checkpointed path (as in the integral's test); what is
+    not comes back None from the VJP."""
+    net = _net(is_blender=True, output_scale=0.8)
+    y0 = _state(n=50)
+    names = [name for name, _ in net.named_parameters()]
+    if case == "state_only":
+        trainable = set()
+    elif case == "frozen_time":
+        trainable = {name for name in names if not name.startswith(
+            ("timenet.", "trunk.0.", "trunk.5."))}
+    elif case == "output_layer_only":
+        trainable = {"out.weight", "out.bias"}
+    else:
+        trainable = set(names)
+    for name, p in net.named_parameters():
+        p.requires_grad_(name in trainable)
+    params = [p for name, p in net.named_parameters() if name in trainable]
+    with_y = case != "params_only"
+
+    def grads():
+        y_ = y0.clone().requires_grad_(with_y)
+        ys = O.integrate_segment(net, y_, 0.2, 0.5, SUBSTEPS)
+        w = torch.linspace(-1.0, 1.0, ys.numel()).reshape(ys.shape)
+        return torch.autograd.grad((ys * w).sum(),
+                                   ([y_] if with_y else []) + params)
+    want = grads()
+    monkeypatch.setattr(K, "DEVICES", ("cuda", "cpu"))
+    got = grads()
+    assert tracing.counters()["ode.evals.fused"] == 8 * SUBSTEPS
+    assert len(got) == len(want) == len(params) + with_y
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+    _, gp = K.rk4_step_vjp_torch(
+        net, y0, 0.2, 0.15, torch.ones_like(y0),
+        [p.requires_grad for p in net.parameters()])
+    assert [x is None for x in gp] == [
+        name not in trainable for name in names]
