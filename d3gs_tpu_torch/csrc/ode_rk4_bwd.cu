@@ -52,139 +52,29 @@
 // Tiles as csrc/ode_rk4.cu: whole waves of 128-row blocks, the rest as one
 // wave of the smallest tile of 128, 96 or 64 rows that holds it. Scratch
 // at N = 78,624: 2.66 GB of layer outputs, 2.58 GB of gradients. The
-// product, ring and reduction helpers and the recompute's stage loop are
-// ode_rk4.cu's, copied here so that the kernel of the no-grad path (the
-// viewer's) keeps its source as it was.
-#include <cuda_runtime.h>
+// tiles, the ring, the 16-row product, the reductions, the wave planner
+// and the recompute's stage loop (`rk4_stages`, the forward's own) are in
+// ode_rk4_common.cuh.
+#include "ode_rk4_common.cuh"
 
 namespace {
 
-constexpr int kW = 256;                         // trunk width
-constexpr int kWarps = 8;                       // per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = kW / 32;                  // columns per lane
-constexpr int kXRows = 64;                      // PE(x): 63 and a zero row
-constexpr int kXDim = 63;
-constexpr int kFreqs = 10;
-constexpr int kBK = 16;                         // weight rows per slab
-constexpr int kRing = 3;                        // slabs in flight
-constexpr int kLayers = 8;
-constexpr int kSlabs = (kXRows + 4 * kW + kXRows + kW + 2 * kW) / kBK;
-constexpr int kStages = 4;
-constexpr int kWide = kBK * kW;                 // floats of a slab
+using namespace d3gs_ode;
+
 constexpr int kXK = kWide / kXRows;             // k rows of a PE(x) slab
-constexpr int kSeq = kStages * kSlabs;          // slabs of a pass
 constexpr int kPartRows = 12;                   // see d3gs_ode_rk4_bwd
-static_assert(kSlabs == 120, "slab sequence");
 
+// Shared memory of the recompute and the sweep at ROWS rows a warp: the
+// forward's (Hs; Xs, the stash of the PE(x) gradient in the sweep; the
+// ring) and the scaled output cotangents of the block's rows.
 template <int ROWS>
-struct Tile {
-  static constexpr int kBM = kWarps * ROWS;     // rows per block
-  static constexpr int kStride = kBM + 4;       // floats per feature row
-  static constexpr int kSpan = ROWS > 8 ? 16 : 8;
-  static constexpr int kLanesPerRow = 32 / kSpan;
-  // Hs, Xs (the stash of the PE(x) gradient in the sweep), the ring, and
-  // the scaled output cotangents of the block's rows
-  static constexpr int kSmemBytes =
-      4 * ((kW + kXRows) * kStride + kRing * kWide + 3 * kBM);
-  static_assert(ROWS % 4 == 0 && ROWS <= kSpan, "rows a warp");
-  static_assert(kStride * 4 % 128 == 16, "act_index's bank groups");
-  static_assert(2 * ROWS * kThreads <= kXRows * kStride, "Xs holds stash");
+constexpr int smem_bytes() {
+  using T = Tile<ROWS>;
+  static_assert(2 * ROWS * kThreads <= kXRows * T::kStride, "Xs holds stash");
   static_assert(ROWS * kCols <= 128, "a lane's mask fits 4 words");
-  static_assert(kSmemBytes <= 232448, "fits one SM's shared memory");
-};
-
-__device__ __forceinline__ int slab_count(int l) {
-  return l == 0 ? 4 : (l == 5 ? 20 : 16);
-}
-__device__ __forceinline__ int x_slabs(int l) {
-  return (l == 0 || l == 5) ? 4 : 0;
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// slab q of a pass's sequence (slab q mod kSlabs of the packed weights:
-// the recompute's K-major w or the sweep's out-major wt, 1,920 x 256 each)
-// into ring buffer q mod kRing: 16 KB, four 16-byte copies a thread
-__device__ __forceinline__ void load_slab(float* ring, const float* w, int q,
-                                          int tid) {
-  const float* src = w + (q % kSlabs) * kWide;
-  float* dst = ring + (q % kRing) * kWide;
-#pragma unroll
-  for (int i = 0; i < kWide / 4 / kThreads; ++i) {
-    const int c = 4 * (tid + i * kThreads);
-    cp_async16(dst + c, src + c);
-  }
-}
-
-// Waits for slab g, keeps the ring kRing - 1 slabs ahead, returns slab g.
-__device__ __forceinline__ const float* next_slab(float* ring, const float* w,
-                                                  int g, int tid) {
-  cp_async_wait<kRing - 2>();
-  __syncthreads();
-  if (g + kRing - 1 < kSeq) load_slab(ring, w, g + kRing - 1, tid);
-  cp_async_commit();
-  return ring + (g % kRing) * kWide;
-}
-
-__device__ __forceinline__ int col_of(int lane, int c) {
-  return 4 * lane + (c & 3) + 128 * (c >> 2);
-}
-
-template <int ROWS>
-__device__ __forceinline__ int act_index(int k, int m) {
-  return k * Tile<ROWS>::kStride + 4 * ((m >> 2) ^ ((k >> 3) & 3)) +
-         (m & 3);
-}
-
-// the ROWS activations act[k][m0 .. m0 + ROWS) of feature k (broadcast)
-template <int ROWS>
-__device__ __forceinline__ void load_act(const float* __restrict__ act,
-                                         int k, int m0, float (&av)[ROWS]) {
-  const float* a = act + k * Tile<ROWS>::kStride;
-#pragma unroll
-  for (int q = 0; q < ROWS / 4; ++q) {
-    const float4 v = *reinterpret_cast<const float4*>(
-        a + 4 * (((m0 >> 2) + q) ^ ((k >> 3) & 3)));
-    av[4 * q] = v.x;
-    av[4 * q + 1] = v.y;
-    av[4 * q + 2] = v.z;
-    av[4 * q + 3] = v.w;
-  }
-}
-
-// acc[r][c] += act[k0 + k][m0 + r] * wt[k][col_of(lane, c)], 16 k
-template <int ROWS>
-__device__ __forceinline__ void slab_fma(const float* __restrict__ act,
-                                         int k0, int m0,
-                                         const float* __restrict__ wt,
-                                         int lane,
-                                         float (&acc)[ROWS][kCols]) {
-#pragma unroll
-  for (int k = 0; k < kBK; ++k) {
-    float av[ROWS];
-    load_act<ROWS>(act, k0 + k, m0, av);
-    const float* b = wt + k * kW + 4 * lane;
-    const float4 b0 = *reinterpret_cast<const float4*>(b);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + 128);
-    const float bv[kCols] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-  }
+  static_assert(T::kSmemBytes + 4 * 3 * T::kBM <= 232448,
+                "fits one SM's shared memory");
+  return T::kSmemBytes + 4 * 3 * T::kBM;
 }
 
 // the narrow product: acc[r][c] += act[k0 + k][m0 + r] * wt[k][2 lane + c]
@@ -205,57 +95,6 @@ __device__ __forceinline__ void slab_fma_x(const float* __restrict__ act,
       acc[r][0] = fmaf(av[r], b.x, acc[r][0]);
       acc[r][1] = fmaf(av[r], b.y, acc[r][1]);
     }
-  }
-}
-
-__device__ __forceinline__ void load_cols(const float* __restrict__ v,
-                                          int lane, float (&out)[kCols]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(v + 4 * lane));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(v + 128 + 4 * lane));
-  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
-  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
-}
-
-__device__ __forceinline__ float relu(float v) { return v <= 0.f ? 0.f : v; }
-
-template <int R>
-__device__ __forceinline__ void reduce_rows(const float (&in)[R][3],
-                                            int lane, int bit,
-                                            float (&out)[3]) {
-  if constexpr (R == 1) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      out[j] = in[0][j];
-      for (int b = bit; b >= 1; b >>= 1)
-        out[j] += __shfl_xor_sync(0xffffffffu, out[j], b);
-    }
-  } else {
-    const bool up = (lane & bit) != 0;
-    float half[R / 2][3];
-#pragma unroll
-    for (int i = 0; i < R / 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float lo = in[i][j], hi = in[i + R / 2][j];
-        const float keep = up ? hi : lo, send = up ? lo : hi;
-        half[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
-      }
-    reduce_rows<R / 2>(half, lane, bit >> 1, out);
-  }
-}
-
-// acc (a lane's ROWS x 8) over Hs, feature-major (the forward's epilogue)
-template <int ROWS>
-__device__ __forceinline__ void to_hs(float* hs, int m0, int lane,
-                                      const float (&acc)[ROWS][kCols]) {
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int f = col_of(lane, c);
-#pragma unroll
-    for (int q = 0; q < ROWS / 4; ++q)
-      *reinterpret_cast<float4*>(hs + act_index<ROWS>(f, m0 + 4 * q)) =
-          make_float4(acc[4 * q][c], acc[4 * q + 1][c], acc[4 * q + 2][c],
-                      acc[4 * q + 3][c]);
   }
 }
 
@@ -291,24 +130,23 @@ __device__ __forceinline__ float row_sum(const float* hs, int f) {
   return s;
 }
 
-// A warp's place in the step: rows [row0, row0 + gridDim.x * kBM), those
-// below n, block blk0 + blockIdx.x of the masks and partial sums, and the
-// scratch: PE(x) [4][n][64], then h_1 ... h_8 (each layer's output), each
-// [4][n][256]; the gradients at layers 0-7's outputs, each [4][n][256].
+// A lane's place in the step (`Lane`) and the pass's memory: block blk0 +
+// blockIdx.x of the masks and partial sums, and the scratch: PE(x)
+// [4][n][64], then h_1 ... h_8 (each layer's output), each [4][n][256];
+// the gradients at layers 0-7's outputs, each [4][n][256]. kStores:
+// `rk4_stages` keeps PE(x), h_l and the masks here.
 template <int ROWS>
-struct Place {
-  using T = Tile<ROWS>;
-  int tid, lane, m0, r_lane, my_row, first, row, part_, blk, n;
-  bool keeps;
+struct Place : Lane<ROWS> {
+  static constexpr bool kStores = true;
+  using Lane<ROWS>::tid;
+  using Lane<ROWS>::lane;
+  using Lane<ROWS>::first;
+  int blk, n;
   long long n4;
   float *acts, *deltas;
   uint4* masks;
   __device__ Place(int row0, int n_, int blk0, float* a, float* d, uint4* mk)
-      : tid(threadIdx.x), lane(threadIdx.x & 31),
-        m0((threadIdx.x >> 5) * ROWS), r_lane(lane / T::kLanesPerRow),
-        my_row(m0 + r_lane), first(row0 + blockIdx.x * T::kBM + m0),
-        row(first + r_lane), part_(lane % T::kLanesPerRow),
-        blk(blk0 + blockIdx.x), n(n_), keeps(r_lane < ROWS), n4(4LL * n_),
+      : Lane<ROWS>(row0), blk(blk0 + blockIdx.x), n(n_), n4(4LL * n_),
         acts(a), deltas(d), masks(mk) {}
   // PE(x) of row r at stage s
   __device__ float* act_x(int s, int r) const {
@@ -327,10 +165,26 @@ struct Place {
     return masks[((static_cast<long long>(blk) * kStages + s) * kLayers + l) *
                      kThreads + tid];
   }
+  // layer l's output at stage s, after its ReLU: h_{l+1} to the scratch
+  __device__ void keep_h(int l, int s, const float (&acc)[ROWS][kCols]) const {
+    store_rows<ROWS>(act_h(l + 1, s), first, n, lane, acc);
+  }
+  // and its mask, one bit an output (layers 0-6: the sweep reads h8 itself)
+  __device__ void keep_mask(int l, int s,
+                            const float (&acc)[ROWS][kCols]) const {
+    unsigned bits[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        if (acc[r][c] > 0.f) bits[(r * kCols + c) >> 5] |=
+            1u << ((r * kCols + c) & 31);
+    mask(l, s) = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+  }
 };
 
-// The four stages again, as ode_rk4_kernel runs them, keeping each layer's
-// input and output and the ReLU masks.
+// The four stages again, as ode_rk4_kernel runs them (`rk4_stages`),
+// keeping each layer's input and output and the ReLU masks.
 template <int ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
 ode_rk4_recompute_kernel(const float* __restrict__ y, int row0, int n,
@@ -341,134 +195,11 @@ ode_rk4_recompute_kernel(const float* __restrict__ y, int row0, int n,
                          const float* __restrict__ b_out, float scale,
                          float h2, float h1, float* __restrict__ acts,
                          uint4* __restrict__ masks) {
-  using T = Tile<ROWS>;
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                               // [256][kStride]
-  float* xs = smem + kW * T::kStride;             // [64][kStride]
-  float* ring = smem + (kW + kXRows) * T::kStride;  // [kRing][16][256]
   const Place<ROWS> at(row0, n, blk0, acts, nullptr, masks);
-  const int tid = at.tid, lane = at.lane, m0 = at.m0, first = at.first;
-  const int row = at.row, my_row = at.my_row, part_ = at.part_;
-  const bool keeps = at.keeps;
-
-  for (int q = 0; q < kRing - 1; ++q) {
-    load_slab(ring, w, q, tid);
-    cp_async_commit();
-  }
-  if (tid < T::kBM) xs[act_index<ROWS>(kXDim, tid)] = 0.f;
-
-  float y0[3], ks[3], yi[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    y0[j] = keeps && row < n ? y[3 * row + j] : 0.f;
-    yi[j] = y0[j];
-    ks[j] = 0.f;
-  }
-
-  float acc[ROWS][kCols];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-
-  int g = 0;                                      // slab of the sequence
-  for (int s = 0; s < kStages; ++s) {
-    if (keeps) {
-      float* ex = at.act_x(s, row);
-      const bool st = row < n;
-      if (part_ == 0) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          xs[act_index<ROWS>(j, my_row)] = yi[j];
-          if (st) ex[j] = yi[j];
-        }
-        if (st) ex[kXDim] = 0.f;
-      }
-      for (int f = part_; f < kFreqs; f += T::kLanesPerRow) {
-        const float p = static_cast<float>(1 << f);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float v = yi[j] * p;
-          const float sv = sinf(v), cv = cosf(v);
-          xs[act_index<ROWS>(3 + 6 * f + j, my_row)] = sv;
-          xs[act_index<ROWS>(6 + 6 * f + j, my_row)] = cv;
-          if (st) {
-            ex[3 + 6 * f + j] = sv;
-            ex[6 + 6 * f + j] = cv;
-          }
-        }
-      }
-    }
-    const int ti = s == 0 ? 0 : (s == 3 ? 2 : 1);  // t, t + dt/2, t + dt
-
-    for (int l = 0; l < kLayers; ++l) {
-      const int g0 = g, nx = x_slabs(l);
-      for (int e = g + slab_count(l); g < e; ++g) {
-        const float* b = next_slab(ring, w, g, tid);
-        const int qs = g - g0;
-        slab_fma<ROWS>(qs < nx ? xs : hs, (qs < nx ? qs : qs - nx) * kBK,
-                       m0, b, lane, acc);
-      }
-      const float* b = (l == 0 || l == 5)
-                           ? tbias + (2 * ti + (l == 5)) * kW
-                           : bias + l * kW;
-      float bv[kCols];
-      load_cols(b, lane, bv);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[r][c] = relu(__fadd_rn(acc[r][c], bv[c]));
-      store_rows<ROWS>(at.act_h(l + 1, s), first, n, lane, acc);
-      if (l == kLayers - 1) break;
-      unsigned bits[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (acc[r][c] > 0.f) bits[(r * kCols + c) >> 5] |=
-              1u << ((r * kCols + c) & 31);
-      at.mask(l, s) = make_uint4(bits[0], bits[1], bits[2], bits[3]);
-      __syncthreads();                            // every read of Hs done
-      to_hs<ROWS>(hs, m0, lane, acc);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-    }
-
-    float part_out[T::kSpan][3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float wo[kCols];
-      load_cols(w_out + j * kW, lane, wo);
-#pragma unroll
-      for (int r = 0; r < T::kSpan; ++r) {
-        float v = 0.f;
-        if (r < ROWS) {
-          v = acc[r][0] * wo[0];
-#pragma unroll
-          for (int c = 1; c < kCols; ++c) v = fmaf(acc[r][c], wo[c], v);
-        }
-        part_out[r][j] = v;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-    float k[3];
-    reduce_rows<T::kSpan>(part_out, lane, 16, k);
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      k[j] = __fmul_rn(__fadd_rn(k[j], __ldg(b_out + j)), scale);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      ks[j] = s == 0 ? k[j]
-                     : __fadd_rn(ks[j], s == 3 ? k[j] : __fmul_rn(2.f, k[j]));
-      yi[j] = __fadd_rn(y0[j], __fmul_rn(s == 2 ? h1 : h2, k[j]));
-    }
-  }
+  float y0[3], ks[3];
+  rk4_stages<ROWS>(smem, at, y, n, w, bias, tbias, w_out, b_out, scale, h2,
+                   h1, y0, ks);
 }
 
 // The reverse sweep, stages 4 -> 1 and layers 7 -> 0, over what
@@ -489,7 +220,7 @@ ode_rk4_sweep_kernel(const float* __restrict__ gout, int row0, int n,
   float* gks = ring + kRing * kWide;              // [kBM][3]
   const Place<ROWS> at(row0, n, blk0, acts, deltas, masks);
   const int tid = at.tid, lane = at.lane, m0 = at.m0, first = at.first;
-  const int row = at.row, my_row = at.my_row, part_ = at.part_;
+  const int row = at.row, my_row = at.my_row, part_ = at.part;
   const bool keeps = at.keeps;
   float* my_part =
       part + static_cast<long long>(at.blk) * kStages * kPartRows * kW;
@@ -866,22 +597,22 @@ struct Args {
 template <int ROWS>
 cudaError_t launch(const Args& a, int row0, int rows, int* blocks,
                    cudaStream_t stream) {
-  using T = Tile<ROWS>;
+  constexpr int smem = smem_bytes<ROWS>();
   cudaError_t err = cudaFuncSetAttribute(
       ode_rk4_recompute_kernel<ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ode_rk4_sweep_kernel<ROWS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::kSmemBytes);
+                               smem);
   if (err != cudaSuccess) return err;
-  const int grid = (rows + T::kBM - 1) / T::kBM;
-  ode_rk4_recompute_kernel<ROWS><<<grid, kThreads, T::kSmemBytes, stream>>>(
+  const int grid = (rows + Tile<ROWS>::kBM - 1) / Tile<ROWS>::kBM;
+  ode_rk4_recompute_kernel<ROWS><<<grid, kThreads, smem, stream>>>(
       a.y, row0, a.n, *blocks, a.w, a.bias, a.tbias, a.w_out, a.b_out,
       a.scale, a.h2, a.h1, a.acts, a.masks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ode_rk4_sweep_kernel<ROWS><<<grid, kThreads, T::kSmemBytes, stream>>>(
+  ode_rk4_sweep_kernel<ROWS><<<grid, kThreads, smem, stream>>>(
       a.g, row0, a.n, *blocks, a.wt, a.w_out, a.scale, a.h2, a.h1, a.h6,
       a.acts, a.deltas, a.masks, a.part, a.gy);
   *blocks += grid;
@@ -921,28 +652,14 @@ extern "C" int d3gs_ode_rk4_bwd(const float* y, const float* g, long long n,
       err = cudaMemsetAsync(dw, 0, sizeof(float) * kGradLen, s);
     return static_cast<int>(err);
   }
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = static_cast<int>(n);
   const Args a{y,     g,      w,  wt, bias, tbias, w_out, b_out,
                scale, h2,     h1, h6, acts, deltas,
                static_cast<uint4*>(masks), part, gy, rows};
-  const int wave = sms * Tile<16>::kBM;
-  const int full = rows / wave * wave;
-  const int rest = rows - full;
   int blocks = 0;
-  if (full > 0) err = launch<16>(a, 0, full, &blocks, s);
-  if (err == cudaSuccess && rest > 0) {
-    if (rest <= sms * Tile<8>::kBM)
-      err = launch<8>(a, full, rest, &blocks, s);
-    else if (rest <= sms * Tile<12>::kBM)
-      err = launch<12>(a, full, rest, &blocks, s);
-    else
-      err = launch<16>(a, full, rest, &blocks, s);
-  }
+  cudaError_t err = plan_waves(rows, [&](auto tile, int row0, int count) {
+    return launch<decltype(tile)::kRows>(a, row0, count, &blocks, s);
+  });
   if (err == cudaSuccess)
     err = launch_sum(part, blocks, kStages * kPartRows * kW, dpart, s);
   if (err == cudaSuccess) {

@@ -52,6 +52,13 @@ def _count_step() -> None:
         tracing.count("ode.evals.nograd", 4)
 
 
+def _count_fused() -> None:
+    """Count a fused step (or its backward's recompute): `_count_step`,
+    and its 4 evaluations under `ode.evals.fused` besides."""
+    _count_step()
+    tracing.count("ode.evals.fused", 4)
+
+
 def _rk4_step(f: Callable, y: torch.Tensor, t, dt):
     """One RK4 step; t and dt are numbers or per-sample (N, 1) tensors.
     Counted by `_count_step`."""
@@ -69,7 +76,7 @@ class _FusedRK4(torch.autograd.Function):
     `ops/ode_rk4.py::rk4_step` and keeps only y; the backward recomputes
     the step and returns the vector-Jacobian products of y and of every
     parameter of the net (the inputs after y) by `ode_rk4.rk4_step_vjp`,
-    counted as a fused recompute (`_count_step`, `ode.evals.fused`)."""
+    counted as a fused recompute (`_count_fused`)."""
 
     @staticmethod
     def forward(ctx, net, t, dt, y, *params):
@@ -81,20 +88,17 @@ class _FusedRK4(torch.autograd.Function):
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
         need = ctx.needs_input_grad[3:]
-        _count_step()
-        tracing.count("ode.evals.fused", 4)
+        _count_fused()
         gy, grads = ode_rk4.rk4_step_vjp(ctx.net, y, ctx.t, ctx.dt, g,
                                          need[1:])
         return (None, None, None, gy if need[0] else None, *grads)
 
 
 def _substep(f: Callable, y: torch.Tensor, t, dt) -> torch.Tensor:
-    """One RK4 step: fused where `ode_rk4.engages` (counted besides under
-    `ode.evals.fused`), else `_rk4_step`, checkpointed when autograd
-    records."""
+    """One RK4 step: fused where `ode_rk4.engages` (`_count_fused`), else
+    `_rk4_step`, checkpointed when autograd records."""
     if ode_rk4.engages(f, y, t, dt):
-        _count_step()
-        tracing.count("ode.evals.fused", 4)
+        _count_fused()
         if torch.is_grad_enabled():
             return _FusedRK4.apply(f, t, dt, y, *f.parameters())
         return ode_rk4.rk4_step(f, y, t, dt)

@@ -183,50 +183,73 @@ def _check(net, y: torch.Tensor, t, dt) -> None:
                              f"on {y.device}, got {p.dtype} on {p.device}")
 
 
+def _prologue(net, y: torch.Tensor, t, dt, g: torch.Tensor | None = None):
+    """What each version of the step and of its VJP starts with: the checks
+    (the cotangent g's too, where given), then y contiguous, the packed
+    weights, the stage times and the time biases at them."""
+    _check(net, y, t, dt)
+    if g is not None:
+        _check_cotangent(y, g)
+    if 3 * y.shape[0] >= 2 ** 31:
+        raise ValueError("ode_rk4: y must hold fewer than 2**31 floats")
+    times = stage_times(t, dt)
+    return y.contiguous(), _packed(net), times, time_biases(net, times, y)
+
+
+def _stages(net: DeformNetworkODE, pk: _Packed, tb: torch.Tensor,
+            y: torch.Tensor, dt):
+    """The step's four stages in the kernel's form, in PyTorch operators:
+    each stage's k, and each stage's layer inputs [PE(x), h1 ... h7] and
+    output h8."""
+    tr = net.trunk
+
+    def f(ti: int, x: torch.Tensor):
+        hs = [positional_encoding(x, MULTIRES)]
+        hs.append(torch.relu(F.linear(hs[0], pk.w0_x, tb[ti, 0])))
+        for i in range(1, SKIP + 1):
+            hs.append(torch.relu(tr[i](hs[-1])))
+        hs.append(torch.relu(F.linear(hs[0], pk.w5_x)
+                             + F.linear(hs[-1], pk.w5_h) + tb[ti, 1]))
+        for i in range(SKIP + 2, DEPTH):
+            hs.append(torch.relu(tr[i](hs[-1])))
+        return net.out(hs[-1]) * net.output_scale, hs
+
+    out = [f(0, y)]
+    out.append(f(1, y + 0.5 * dt * out[0][0]))
+    out.append(f(1, y + 0.5 * dt * out[1][0]))
+    out.append(f(2, y + dt * out[2][0]))
+    return [k for k, _ in out], [hs for _, hs in out]
+
+
 @torch.no_grad()
 def rk4_step_torch(net: DeformNetworkODE, y: torch.Tensor, t,
                    dt) -> torch.Tensor:
     """Plain version: the kernel's function in PyTorch operators."""
-    _check(net, y, t, dt)
-    pk = _packed(net)
-    tb = time_biases(net, stage_times(t, dt), y)
-    tr = net.trunk
-
-    def f(ti: int, x: torch.Tensor) -> torch.Tensor:
-        x_emb = positional_encoding(x, MULTIRES)
-        h = torch.relu(F.linear(x_emb, pk.w0_x, tb[ti, 0]))
-        for i in range(1, SKIP + 1):
-            h = torch.relu(tr[i](h))
-        h = torch.relu(F.linear(x_emb, pk.w5_x) + F.linear(h, pk.w5_h)
-                       + tb[ti, 1])
-        for i in range(SKIP + 2, DEPTH):
-            h = torch.relu(tr[i](h))
-        return net.out(h) * net.output_scale
-
-    k1 = f(0, y)
-    k2 = f(1, y + 0.5 * dt * k1)
-    k3 = f(1, y + 0.5 * dt * k2)
-    k4 = f(2, y + dt * k3)
-    return y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    y, pk, _, tb = _prologue(net, y, t, dt)
+    k, _ = _stages(net, pk, tb, y, dt)
+    return y + (dt / 6.0) * (k[0] + 2 * k[1] + 2 * k[2] + k[3])
 
 
 @torch.no_grad()
 def rk4_step_cuda(net: DeformNetworkODE, y: torch.Tensor, t,
                   dt) -> torch.Tensor:
     """Launch `csrc/ode_rk4.cu`; raises if it cannot be built or launched."""
-    _check(net, y, t, dt)
-    if 3 * y.shape[0] >= 2 ** 31:
-        raise ValueError("ode_rk4: y must hold fewer than 2**31 floats")
-    y = y.contiguous()
-    pk = _packed(net)
-    tb = time_biases(net, stage_times(t, dt), y)
-    out = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        err = _build.entry("ode_rk4", _ARGTYPES)(
-            y.data_ptr(), y.shape[0], pk.w.data_ptr(), pk.bias.data_ptr(),
-            tb.data_ptr(), pk.w_out.data_ptr(), pk.b_out.data_ptr(),
-            float(net.output_scale), 0.5 * dt, float(dt), dt / 6.0,
-            out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
+        return _step_kernel(_build.entry("ode_rk4", _ARGTYPES), net, y, t,
+                            dt, torch.cuda.current_stream(y.device
+                                                          ).cuda_stream)
+
+
+def _step_kernel(entry, net: DeformNetworkODE, y: torch.Tensor, t, dt,
+                 stream) -> torch.Tensor:
+    """`rk4_step` by the C entry `entry` of `csrc/ode_rk4.cu` on y's device
+    (the tests pass a CPU build of it)."""
+    y, pk, _, tb = _prologue(net, y, t, dt)
+    out = torch.empty_like(y)
+    err = entry(y.data_ptr(), y.shape[0], pk.w.data_ptr(), pk.bias.data_ptr(),
+                tb.data_ptr(), pk.w_out.data_ptr(), pk.b_out.data_ptr(),
+                float(net.output_scale), 0.5 * dt, float(dt), dt / 6.0,
+                out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ode_rk4 kernel launch failed: cudaError {err}")
     tracing.count("launches.ode_rk4")
@@ -314,30 +337,9 @@ def rk4_step_vjp_torch(net: DeformNetworkODE, y: torch.Tensor, t, dt,
     """Plain version of `rk4_step_vjp`: the four stages again in the
     kernel's form, each layer's input kept, then the reverse sweep, stages
     4 -> 1 and layers 7 -> 0, in PyTorch operators."""
-    _check(net, y, t, dt)
-    _check_cotangent(y, g)
-    pk = _packed(net)
-    times = stage_times(t, dt)
-    tb = time_biases(net, times, y)
+    y, pk, times, tb = _prologue(net, y, t, dt, g)
+    _, acts = _stages(net, pk, tb, y, dt)
     tr = net.trunk
-
-    def f(ti: int, x: torch.Tensor):
-        """k and the layers' inputs [PE(x), h1 ... h7] and output h8."""
-        hs = [positional_encoding(x, MULTIRES)]
-        hs.append(torch.relu(F.linear(hs[0], pk.w0_x, tb[ti, 0])))
-        for i in range(1, SKIP + 1):
-            hs.append(torch.relu(tr[i](hs[-1])))
-        hs.append(torch.relu(F.linear(hs[0], pk.w5_x)
-                             + F.linear(hs[-1], pk.w5_h) + tb[ti, 1]))
-        for i in range(SKIP + 2, DEPTH):
-            hs.append(torch.relu(tr[i](hs[-1])))
-        return net.out(hs[-1]) * net.output_scale, hs
-
-    k, acts = [None] * 4, [None] * 4
-    k[0], acts[0] = f(0, y)
-    k[1], acts[1] = f(1, y + 0.5 * dt * k[0])
-    k[2], acts[2] = f(1, y + 0.5 * dt * k[1])
-    k[3], acts[3] = f(2, y + dt * k[2])
 
     c1 = (dt / 6.0) * g
     gk = [c1, 2 * c1, 2 * c1, c1]
@@ -391,15 +393,9 @@ def _vjp_kernel(entry, net: DeformNetworkODE, y: torch.Tensor, t, dt,
     stage's layer outputs, the gradients at them, ReLU masks and partial
     sums: ~5.3 GB at N = 78,624) comes from PyTorch's allocator, which
     hands the same blocks to the next substep."""
-    _check(net, y, t, dt)
-    _check_cotangent(y, g)
+    y, pk, times, tb = _prologue(net, y, t, dt, g)
+    g = g.contiguous()
     n = y.shape[0]
-    if 3 * n >= 2 ** 31:
-        raise ValueError("ode_rk4: y must hold fewer than 2**31 floats")
-    y, g = y.contiguous(), g.contiguous()
-    pk = _packed(net)
-    times = stage_times(t, dt)
-    tb = time_biases(net, times, y)
     blocks = -(-n // 64)          # the most row tiles the kernel makes
     wlen = len(WIDE_LAYERS) * WIDTH * WIDTH + 2 * WIDTH * X_ROWS
     acts = y.new_empty(4 * n * (X_ROWS + DEPTH * WIDTH))

@@ -1,10 +1,10 @@
 """Build a kernel source of `d3gs_tpu_torch/csrc` for the CPU: a text edit
-of the .cu (the cp.async helpers as plain copies, `extern __shared__` as
-the block's buffer, `<<<...>>>` launches as `host_launch`) compiled by g++
-against the stand-in runtime of `tests/cuda_host/cuda_runtime.h`, and
-loaded with ctypes. Its C entry then runs on CPU tensors' pointers, so a
-test holds the kernel's own arithmetic against its plain version here;
-the card runs it in `chip_smoke.py`."""
+of the .cu and the csrc headers it includes (the cp.async helpers as plain
+copies, `extern __shared__` as the block's buffer, `<<<...>>>` launches as
+`host_launch`) compiled by g++ against the stand-in runtime of
+`tests/cuda_host/cuda_runtime.h`, and loaded with ctypes. Its C entry then
+runs on CPU tensors' pointers, so a test holds the kernel's own arithmetic
+against its plain version here; the card runs it in `chip_smoke.py`."""
 from __future__ import annotations
 
 import ctypes
@@ -17,8 +17,19 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "d3gs_tpu_torch" / "csrc"
 
 
+def inline_includes(text: str) -> str:
+    """The text with each local `#include "<file>"` of csrc/ replaced by
+    that file's own text (its includes inlined in turn), so that the edits
+    of `host_source` see every definition once."""
+    return re.sub(r'^#include "([^"]+)"$',
+                  lambda m: inline_includes((CSRC / m.group(1)).read_text()),
+                  text, flags=re.M)
+
+
 def host_source(text: str) -> str:
-    """The .cu's text with the device-only constructs replaced."""
+    """The .cu's text, its local headers inlined, with the device-only
+    constructs replaced."""
+    text = inline_includes(text)
     def body(name: str, new: str) -> None:
         nonlocal text
         pat = (r"(__device__ __forceinline__ void " + name
