@@ -38,7 +38,12 @@ Phases (any failure exits non-zero):
      gradient's gap held to a control's (the checkpointed path with its
      input moved one ulp); the backward kernel (csrc/ode_rk4_bwd.cu) of
      one step against its plain version, held to the same kind of
-     control, and twice on one input, bit for bit;
+     control, and twice on one input, bit for bit; (3e) the fused
+     deformation MLP (csrc/mlp_field.cu) at the real-scene cell's 400,000
+     points and at a ragged count, its forward against the plain version
+     (and bit for bit with and without the backward's scratch, run to
+     run), its VJP and DeformMLP under autograd held to a control as in
+     3d, and the real-scene train step launching both kernels a step;
   4. the main paths, each with the kernels' counts set to 0 just before it
      and read just after:
      4.  render: a D-NeRF-format dataset (bench.py's scene moving by
@@ -1074,7 +1079,9 @@ def render_main_path(dev, data, mp) -> dict:
     """Phase 4: a model directory at the bench scale, rendered through
     `d3gs_tpu_torch.render.main([... "--benchmark"])`; the forward's launch
     count is read around that call and test render 0 is held against the
-    plain blend."""
+    plain blend. The deformation MLP (the 8x256 Blender field, at each
+    frame's host time and without autograd) must run its forward kernel
+    once a frame."""
     from d3gs_tpu_torch import config as C
     from d3gs_tpu_torch import render as R
     from d3gs_tpu_torch.data.image_io import read_png
@@ -1084,6 +1091,7 @@ def render_main_path(dev, data, mp) -> dict:
         save_deform_weights)
     from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
     from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops import mlp_field as M
     from d3gs_tpu_torch.train.flagship import pick_field_spec
     params4, alive4 = bench_params(dev, f_rest_std=0.05, seed=1)
     os.makedirs(os.path.join(mp, "point_cloud", "iteration_1"))
@@ -1100,14 +1108,16 @@ def render_main_path(dev, data, mp) -> dict:
     t0 = time.perf_counter()
     result = R.main(["-m", mp, "--mode", "render", "--benchmark"])
     torch.cuda.synchronize()
-    launches = {"blend_fwd": B.launch_counts()["blend_fwd"]}
+    launches = {"blend_fwd": B.launch_counts()["blend_fwd"],
+                **M.launch_counts()}
     result["launches"] = launches
     log(f"[4] render.main: {result} in {time.perf_counter() - t0:.1f} s; "
         f"kernel launches {launches}")
     frames = result["views"] + result["benchmark"]["frames"]
-    if launches["blend_fwd"] < frames:
-        raise AssertionError(f"blend_fwd launched {launches['blend_fwd']}"
-                             f" times for {frames} frames")
+    for kernel in ("blend_fwd", "mlp_field"):
+        if launches[kernel] < frames:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} "
+                                 f"times for {frames} frames")
     cov = []
     for split, n in (("train", 4), ("test", 2)):
         for i in range(n):
@@ -1176,29 +1186,34 @@ def train_main_path(dev, data, mp) -> dict:
     enough to clone and split (the first grows the buffer), an opacity
     reset and the large-screen prune in the pass after it, the SH ramp at
     1000, PSNR evaluations at 1 and 1000 and a checkpoint. The kernels'
-    launch counts are read around that call. The run must have learned
+    launch counts are read around that call: each deform step must run the
+    deformation MLP's forward and VJP kernels (AST's host time, xyz
+    detached), every MLP evaluation fused. The run must have learned
     the scene: no step's render empty (`EmptyViewWatch`), the late
     losses below the first, the mean test PSNR up
     from the first evaluation's and at least TRAIN_PSNR_FLOOR, and every
     view of the checkpoint's render (`render.main`) at least
     VIEW_PSNR_FLOOR."""
+    from d3gs_tpu_torch import tracing
     from d3gs_tpu_torch.data.image_io import read_png
     from d3gs_tpu_torch.data.ply import write_pointcloud_ply
     from d3gs_tpu_torch import render as R
     from d3gs_tpu_torch.ops import blend as B
+    from d3gs_tpu_torch.ops import mlp_field as M
     from d3gs_tpu_torch.tools.exp_empty_views import EmptyViewWatch
     from d3gs_tpu_torch.train.__main__ import main as train_main
     pts, cols = bench_points()
     write_pointcloud_ply(os.path.join(data, "points3d.ply"), pts,
                          np.round(cols * 255))
-    it = TRAIN_ITERATIONS
+    it, warm_up = TRAIN_ITERATIONS, 6
     n_eval = 2 * 2
+    deform_steps = it - warm_up + 1       # iterations warm_up ... it
     reset_counts()
     t0 = time.perf_counter()
     with WatchHostEvents() as events, EmptyViewWatch() as views:
         result = train_main([
             "-s", data, "-m", mp, "--eval", "--is_blender", "--quiet",
-            "--iterations", str(it), "--warm_up", "6",
+            "--iterations", str(it), "--warm_up", str(warm_up),
             "--sh_degree", "3", "--densify_from_iter", "8",
             "--densification_interval", str(TRAIN_DENSIFY_INTERVAL),
             "--densify_until_iter", str(TRAIN_DENSIFY_UNTIL),
@@ -1211,9 +1226,12 @@ def train_main_path(dev, data, mp) -> dict:
             "--sequence_length", "4"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = B.launch_counts()
+    launches = {**B.launch_counts(), **M.launch_counts()}
+    c = tracing.counters()
+    mlp = {k: c.get(f"deform.mlp.{k}", 0) for k in ("evals", "fused")}
     log(f"[4b] train.main: {it} iterations in {wall:.1f} s; "
-        f"kernel launches {launches}; losses {result.losses}; PSNR "
+        f"kernel launches {launches}; MLP evaluations {mlp}; losses "
+        f"{result.losses}; PSNR "
         f"{result.test_psnrs}; densify (iteration, alive, capacity before, "
         f"alive, capacity after) {result.densify_events}; opacity resets "
         f"(largest live opacity after) {events.resets}; removals by pass "
@@ -1236,6 +1254,13 @@ def train_main_path(dev, data, mp) -> dict:
         raise AssertionError(f"blend_fwd launched {launches['blend_fwd']} "
                              f"times for {it} steps and {n_eval} "
                              f"evaluation renders")
+    if not (launches["mlp_field"] >= deform_steps
+            and launches["mlp_field_bwd"] >= deform_steps
+            and mlp["evals"] >= deform_steps
+            and mlp["fused"] == mlp["evals"]):
+        raise AssertionError(f"the fused MLP over {deform_steps} deform "
+                             f"steps: launches {launches}, evaluations "
+                             f"{mlp}")
     values = [v for _, v in result.losses] + list(result.test_psnrs.values())
     if not (values and all(math.isfinite(v) for v in values)
             and it in result.test_psnrs):
@@ -1568,6 +1593,259 @@ def ode_vjp_timings(dev, net, y, dt: float) -> dict:
         f"{t['plain_ms']:.3f} ms, _rk4_step + autograd {t['library_ms']:.3f}"
         f" ms; peak {t['peak_bytes'] / 1e9:.2f} GB; "
         f"{json.dumps(t['profile'])}")
+    return t
+
+
+# 3e: the fused deformation MLP (csrc/mlp_field.cu) at the real-scene
+# cell's size, its field (8x256, PE(x, 10) and PE(t, 10), full heads,
+# nn.Linear's init), positions uniform in [-1.3, 1.3]^3; and a ragged N
+# whose tail takes the 64-row tile, on the Blender time net with the
+# `warp` kind's one head
+MLP_N = 400_000
+MLP_RAGGED_N = 21_899
+MLP_T = 0.41
+MLP_FWD_TOL = 2e-6                # heads: largest gap over largest head
+#                                   (products in another order)
+# The gradients are held to the 3d control (ODE_GRAD_CONTROL_X times the
+# plain version's gap with x moved one ulp), never below MLP_GRAD_FLOOR and
+# never above MLP_GRAD_TOL. The floor: the heads' bias gradients are the
+# column sums of the cotangents, which x does not move (their control reads
+# 0), and 400,000 f32 terms summed in another order differ by ~2e-6
+# (relative L2). The cap: at 400,000 points one ulp of x moves the trunk's
+# gradients by ~7e-3 (ReLU masks flip), so 3d's 1e-3 is below the noise of
+# the layers' own f32 path; 5e-3 still shows a fault that moves a gradient
+# by a percent
+MLP_GRAD_FLOOR = 1e-5
+MLP_GRAD_TOL = 5e-3
+
+
+def mlp_field_inputs(dev, n: int, seed: int = 0, **kw):
+    """(net, x) of phase 3e."""
+    from d3gs_tpu_torch.models.deform.networks import DeformMLP
+    g = torch.Generator().manual_seed(seed)
+    net = DeformMLP(generator=g, **kw).to(dev)
+    x = (torch.rand(n, 3, generator=g) * 2.6 - 1.3).to(dev)
+    return net, x
+
+
+def mlp_field_flops(n: int, heads: int = 10) -> tuple[float, float]:
+    """f32 FLOPs that the forward kernel and the VJP kernel need for one
+    evaluation at n rows: the forward's products with the time input
+    folded into c0 and c5 (PE(x) 63 -> 256 at layer 0, 63 + 256 -> 256 at
+    the skip; 256 -> `heads`); the VJP's sweep (the input gradients of
+    layers 7 ... 1 and of the heads, none of layer 0's or of PE(x)) and
+    its weight gradients (the forward's products again).
+    `benchmark/counts.py` counts the time input per point (84 and 340
+    wide), work that neither kernel does."""
+    fwd = (63 * 256 + 4 * 256 * 256 + (63 + 256) * 256 + 2 * 256 * 256
+           + 256 * heads)
+    sweep = 7 * 256 * 256 + 256 * heads
+    return 2.0 * n * fwd, 2.0 * n * (sweep + fwd)
+
+
+def mlp_field_check(dev) -> dict:
+    """Phase 3e: at MLP_N (10 heads, PE(t)) and MLP_RAGGED_N (3 heads, the
+    Blender time net), the forward kernel against `mlp_field_torch` (the
+    largest gap over the largest head, within MLP_FWD_TOL), with and
+    without the backward's scratch and twice, bit for bit; the VJP kernel
+    against `mlp_field_vjp_torch`, each leaf's gap (relative L2) held to
+    the control's (the plain VJP with x moved one ulp: the ReLU masks make
+    the gradients ill-conditioned in f32, as the ODE's), and twice, bit
+    for bit; DeformMLP under autograd (`_FusedMLP`) against its layers
+    under autograd, held to the same control. Then the real-scene cell's
+    train step (`make_train_step` with `train/baseline.py::make_deform_fn`,
+    AST) on the bench scene must launch both kernels once a step."""
+    from unittest import mock
+    from d3gs_tpu_torch.ops import mlp_field as M
+    out = {}
+    for n, kw in ((MLP_N, {}), (MLP_RAGGED_N, dict(is_blender=True,
+                                                   full_heads=False))):
+        net, x = mlp_field_inputs(dev, n, **kw)
+        params = list(net.parameters())
+        reset_counts()
+        with torch.no_grad():
+            heads, kept = M.mlp_field(net, x, MLP_T, keep=True)
+            alone = M.mlp_field(net, x, MLP_T)[0]
+            again = M.mlp_field(net, x, MLP_T)[0]
+            plain = M.mlp_field_torch(net, x, MLP_T)
+        gc = [torch.randn(h.shape, generator=torch.Generator().manual_seed(
+            2 + i)).to(dev) for i, h in enumerate(heads)]
+        first = M.mlp_field_vjp(net, x, MLP_T, gc, kept)
+        second = M.mlp_field_vjp(net, x, MLP_T, gc, kept)
+        ref = M.mlp_field_vjp_torch(net, x, MLP_T, gc)
+        moved = M.mlp_field_vjp_torch(net, x * (1 + 2.0 ** -23), MLP_T, gc)
+
+        def through(x_in):
+            return torch.autograd.grad(net(x_in, MLP_T)[:len(gc)], params,
+                                       gc)
+        fused = through(x)
+        with mock.patch.object(M, "DEVICES", ()):   # the layers
+            layers = through(x)
+            layers_moved = through(x * (1 + 2.0 ** -23))
+        torch.cuda.synchronize()
+        l2 = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+        fwd = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(heads, plain))
+        gap = [l2(a, b) for a, b in zip(first, ref)]
+        control = [l2(a, b) for a, b in zip(moved, ref)]
+        via = [l2(a, b) for a, b in zip(fused, layers)]
+        via_control = [l2(a, b) for a, b in zip(layers_moved, layers)]
+        r = {"fwd_gap": fwd,
+             "fwd_bitwise": all(torch.equal(a, b) and torch.equal(a, c)
+                                for a, b, c in zip(heads, alone, again)),
+             "finite": all(bool(torch.isfinite(h).all()) for h in heads),
+             "vjp_l2_params": max(gap), "vjp_control": max(control),
+             "vjp_bitwise": all(torch.equal(a, b)
+                                for a, b in zip(first, second)),
+             "autograd_l2_params": max(via),
+             "autograd_control": max(via_control),
+             "launches": M.launch_counts()}
+        out[n] = r
+        log(f"[3e] mlp_field at N = {n} ({len(heads)} head(s), "
+            f"{'Blender time net' if kw else 'PE(t)'}): largest head gap "
+            f"{fwd:.3e} of the largest head vs plain; bit-equal with and "
+            f"without the scratch and run to run: {r['fwd_bitwise']}; VJP "
+            f"relative L2, worst parameter {max(gap):.3e} (control, plain "
+            f"with x moved one ulp, {max(control):.3e}), bit-equal run to "
+            f"run: {r['vjp_bitwise']}; DeformMLP under autograd fused vs "
+            f"layers {max(via):.3e} (control {max(via_control):.3e}); "
+            f"launches {r['launches']}")
+        if not (r["finite"] and fwd <= MLP_FWD_TOL and r["fwd_bitwise"]
+                and r["vjp_bitwise"]):
+            raise AssertionError(f"mlp_field at N = {n}: {r}")
+        for a, b in list(zip(gap, control)) + list(zip(via, via_control)):
+            if not a <= min(MLP_GRAD_TOL, max(ODE_GRAD_CONTROL_X * b,
+                                              MLP_GRAD_FLOOR)):
+                raise AssertionError(f"mlp_field gradients at N = {n}: "
+                                     f"{gap} / {via} against the controls "
+                                     f"{control} / {via_control}")
+        del kept
+    out["train_real_step"] = mlp_train_real_launches(dev)
+    return out
+
+
+def mlp_train_real_launches(dev, steps: int = 3) -> dict:
+    """Phase 3e: `steps` steps of the real-scene cell's train step (the
+    baseline trainer's deform phase with AST, `make_train_step` and
+    `make_deform_fn`, as `benchmark/loops/train_real.py` builds it) on the
+    bench scene with the cell's field (PE(t), full heads): each step must
+    run the forward kernel and the VJP kernel once, every evaluation
+    fused."""
+    import dataclasses
+    import types
+    from d3gs_tpu_torch import config as C
+    from d3gs_tpu_torch import tracing
+    from d3gs_tpu_torch.models.deform.fields import (DeformFieldSpec,
+                                                     create_deform_field)
+    from d3gs_tpu_torch.models.gaussians import gaussians_from_numpy
+    from d3gs_tpu_torch.ops import mlp_field as M
+    from d3gs_tpu_torch.train.baseline import make_deform_fn
+    from d3gs_tpu_torch.train.step import make_train_step
+    opt, pipe = C.OptimizationParams(), C.PipelineParams()
+    params, alive = bench_params(dev)
+    state = gaussians_from_numpy(params, alive, 3, 3, dev)
+    field = create_deform_field(DeformFieldSpec(kind="baseline"), seed=2,
+                                device=dev, opt_cfg=opt)
+    gt = torch.rand((HEIGHT, WIDTH, 3), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    cam = dataclasses.replace(look_from_z(4.0, WIDTH, dev, fid=0.3), image=gt)
+    step = make_train_step(
+        opt_cfg=opt, pipe_cfg=pipe,
+        deform_fn=make_deform_fn(field, types.SimpleNamespace(
+            is_blender=False), 1.0 / 120),
+        deform_params=list(field.net.parameters()),
+        deform_update_fn=field.update)
+    dstate = field.init_state()
+    gen = torch.Generator().manual_seed(7)
+    reset_counts()
+    for i in range(steps):
+        state, dstate, _ = step(state, dstate, cam, 16_000 + i, gen,
+                                torch.zeros(3, device=dev))
+    torch.cuda.synchronize()
+    c = tracing.counters()
+    out = {"launches": M.launch_counts(),
+           "evals": c.get("deform.mlp.evals", 0),
+           "fused": c.get("deform.mlp.fused", 0),
+           "ast": c.get("deform.ast", 0)}
+    log(f"[3e] {steps} steps of the real-scene train step (AST): {out}")
+    if out["launches"] != {"mlp_field": steps, "mlp_field_bwd": steps} or \
+            out["evals"] != steps or out["fused"] != steps or \
+            out["ast"] != steps:
+        raise AssertionError(f"the real-scene train step did not run the "
+                             f"fused MLP once a step: {out}")
+    return out
+
+
+def mlp_field_timings(dev) -> dict:
+    """Phase 5: one evaluation at MLP_N (the real-scene field) by CUDA
+    events: the forward kernel (through its wrapper: the pack cached, the
+    time biases computed each call), its plain version and the library's
+    yardstick, today's DeformMLP layers (cuBLAS SGEMMs and glue); the
+    forward keeping the scratch and the VJP kernel over it against their
+    plain versions and DeformMLP's layers forward + autograd backward. The
+    bounds: `mlp_field_flops` over the f32 peak. Device times by the
+    profiler."""
+    from unittest import mock
+    from d3gs_tpu_torch.ops import mlp_field as M
+    net, x = mlp_field_inputs(dev, MLP_N)
+    params = list(net.parameters())
+    gc = [torch.randn((MLP_N, k), generator=torch.Generator().manual_seed(
+        2 + i)).to(dev) for i, k in enumerate((3, 4, 3))]
+    with torch.no_grad():
+        kept = M.mlp_field(net, x, MLP_T, keep=True)[1]
+
+    def layers_fwd():
+        with mock.patch.object(M, "DEVICES", ()), torch.no_grad():
+            return net(x, MLP_T)
+
+    def layers_fwd_bwd():
+        with mock.patch.object(M, "DEVICES", ()):
+            return torch.autograd.grad(net(x, MLP_T), params, gc)
+
+    def fused_fwd_bwd():
+        return torch.autograd.grad(net(x, MLP_T), params, gc)
+    fwd = lambda: M.mlp_field(net, x, MLP_T)  # noqa: E731
+    vjp = lambda: M.mlp_field_vjp(net, x, MLP_T, gc, kept)  # noqa: E731
+    with torch.no_grad():
+        t = {"fwd_ms": cuda_ms(fwd, 10),
+             "fwd_keep_ms": cuda_ms(
+                 lambda: M.mlp_field(net, x, MLP_T, keep=True), 10),
+             "fwd_plain_ms": cuda_ms(
+                 lambda: M.mlp_field_torch(net, x, MLP_T), 5),
+             "fwd_library_ms": cuda_ms(layers_fwd, 5),
+             "vjp_ms": cuda_ms(vjp, 10),
+             "vjp_plain_ms": cuda_ms(
+                 lambda: M.mlp_field_vjp_torch(net, x, MLP_T, gc), 3),
+             "fwd_bound_ms": 1e3 * mlp_field_flops(MLP_N)[0] / F32_FLOPS,
+             "vjp_bound_ms": 1e3 * mlp_field_flops(MLP_N)[1] / F32_FLOPS}
+    t["fused_fwd_bwd_ms"] = cuda_ms(fused_fwd_bwd, 5)
+    t["library_fwd_bwd_ms"] = cuda_ms(layers_fwd_bwd, 5)
+    t["fwd_profile"] = profile(fwd, calls=5, top=4)
+    t["vjp_profile"] = profile(vjp, calls=5, top=8)
+    torch.cuda.reset_peak_memory_stats()
+    fused_fwd_bwd()
+    torch.cuda.synchronize()
+    t["fused_fwd_bwd_peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    layers_fwd_bwd()
+    torch.cuda.synchronize()
+    t["library_fwd_bwd_peak_bytes"] = torch.cuda.max_memory_allocated()
+    t["fwd_share_of_f32_peak"] = t["fwd_bound_ms"] / t["fwd_ms"]
+    t["vjp_share_of_f32_peak"] = t["vjp_bound_ms"] / t["vjp_ms"]
+    log(f"[5] mlp_field at N = {MLP_N}: forward {t['fwd_ms']:.3f} ms "
+        f"(keeping the scratch {t['fwd_keep_ms']:.3f}; device "
+        f"{t['fwd_profile']['device_ms_per_call']:.3f}), bound "
+        f"{t['fwd_bound_ms']:.3f} ms ({100 * t['fwd_share_of_f32_peak']:.1f}"
+        f" % of the f32 peak), plain {t['fwd_plain_ms']:.3f}, DeformMLP's "
+        f"layers {t['fwd_library_ms']:.3f}; VJP {t['vjp_ms']:.3f} ms "
+        f"(device {t['vjp_profile']['device_ms_per_call']:.3f}), bound "
+        f"{t['vjp_bound_ms']:.3f} ({100 * t['vjp_share_of_f32_peak']:.1f} "
+        f"%), plain {t['vjp_plain_ms']:.3f}; forward + backward through "
+        f"autograd fused {t['fused_fwd_bwd_ms']:.3f} ms vs the layers "
+        f"{t['library_fwd_bwd_ms']:.3f} ms, peak "
+        f"{t['fused_fwd_bwd_peak_bytes'] / 1e9:.2f} vs "
+        f"{t['library_fwd_bwd_peak_bytes'] / 1e9:.2f} GB; "
+        f"{json.dumps(t['fwd_profile'])}; {json.dumps(t['vjp_profile'])}")
     return t
 
 
@@ -4298,6 +4576,8 @@ def main() -> int:
     row_errs = compare_rows(rows_in)
     # ---- 3d. the fused RK4 step vs plain at trex's size ------------------
     ode_errs = ode_rk4_check(dev)
+    # ---- 3e. the fused deformation MLP vs plain at the real scene's size --
+    mlp_errs = mlp_field_check(dev)
 
     with tempfile.TemporaryDirectory(prefix="d3gs_smoke_") as tmp:
         # ---- 4. main path: render ---------------------------------------
@@ -4393,6 +4673,7 @@ def main() -> int:
     rt = row_timings(rows_in)
     log("[5] row kernels at the tools' shapes: " + json.dumps(rt))
     ot = ode_rk4_timings(dev)
+    mt = mlp_field_timings(dev)
     ft, fprof = flagship_timings(dev, state, bg)
     ft["card"] = smi
     log("[5] flagship steps: " + json.dumps(ft))
@@ -4461,6 +4742,21 @@ def main() -> int:
         "max_rel_l2_err": ode_errs["vjp_l2_params"], "ms": ot["bwd"]["ms"],
         "plain_ms": ot["bwd"]["plain_ms"], "bound_ms": ot["bwd"]["bound_ms"],
         "bound_by": "ops", "library_ms": ot["bwd"]["library_ms"],
+    }, {
+        "name": "mlp_field", "route": "cuda",
+        "source": "d3gs_tpu_torch/csrc/mlp_field.cu", "replaces": None,
+        "launches": train_launches["mlp_field"],
+        "max_rel_err": mlp_errs[MLP_N]["fwd_gap"], "ms": mt["fwd_ms"],
+        "plain_ms": mt["fwd_plain_ms"], "bound_ms": mt["fwd_bound_ms"],
+        "bound_by": "ops", "library_ms": mt["fwd_library_ms"],
+    }, {
+        "name": "mlp_field_bwd", "route": "cuda",
+        "source": "d3gs_tpu_torch/csrc/mlp_field.cu", "replaces": None,
+        "launches": train_launches["mlp_field_bwd"],
+        "max_rel_l2_err": mlp_errs[MLP_N]["vjp_l2_params"],
+        "ms": mt["vjp_ms"], "plain_ms": mt["vjp_plain_ms"],
+        "bound_ms": mt["vjp_bound_ms"], "bound_by": "ops",
+        "library_ms": mt["library_fwd_bwd_ms"] - mt["fwd_library_ms"],
     }]
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
     print(smi)

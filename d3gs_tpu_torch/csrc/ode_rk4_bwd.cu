@@ -54,8 +54,10 @@
 // at N = 78,624: 2.66 GB of layer outputs, 2.58 GB of gradients. The
 // tiles, the ring, the 16-row product, the reductions, the wave planner
 // and the recompute's stage loop (`rk4_stages`, the forward's own) are in
-// ode_rk4_common.cuh.
-#include "ode_rk4_common.cuh"
+// ode_rk4_common.cuh; the scratch's layout (`Place`), the sweep's row
+// helpers and the weight-gradient pass in bwd_common.cuh, which the
+// deformation MLP's backward (mlp_field.cu) shares.
+#include "bwd_common.cuh"
 
 namespace {
 
@@ -98,91 +100,6 @@ __device__ __forceinline__ void slab_fma_x(const float* __restrict__ act,
   }
 }
 
-// acc to the rows below n of a 256-wide scratch slot (row stride 256)
-template <int ROWS>
-__device__ __forceinline__ void store_rows(float* slot, int first, int n,
-                                           int lane,
-                                           const float (&acc)[ROWS][kCols]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (first + r >= n) break;
-    float* p = slot + static_cast<long long>(r) * kW + 4 * lane;
-    *reinterpret_cast<float4*>(p) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    *reinterpret_cast<float4*>(p + 128) =
-        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-  }
-}
-
-// sum over the block's rows of Hs' feature `f`, in row order
-template <int ROWS>
-__device__ __forceinline__ float row_sum(const float* hs, int f) {
-  const float* a = hs + f * Tile<ROWS>::kStride;
-  float s = 0.f;
-  for (int q = 0; q < Tile<ROWS>::kBM / 4; ++q) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(a + 4 * (q ^ ((f >> 3) & 3)));
-    s += v.x;
-    s += v.y;
-    s += v.z;
-    s += v.w;
-  }
-  return s;
-}
-
-// A lane's place in the step (`Lane`) and the pass's memory: block blk0 +
-// blockIdx.x of the masks and partial sums, and the scratch: PE(x)
-// [4][n][64], then h_1 ... h_8 (each layer's output), each [4][n][256];
-// the gradients at layers 0-7's outputs, each [4][n][256]. kStores:
-// `rk4_stages` keeps PE(x), h_l and the masks here.
-template <int ROWS>
-struct Place : Lane<ROWS> {
-  static constexpr bool kStores = true;
-  using Lane<ROWS>::tid;
-  using Lane<ROWS>::lane;
-  using Lane<ROWS>::first;
-  int blk, n;
-  long long n4;
-  float *acts, *deltas;
-  uint4* masks;
-  __device__ Place(int row0, int n_, int blk0, float* a, float* d, uint4* mk)
-      : Lane<ROWS>(row0), blk(blk0 + blockIdx.x), n(n_), n4(4LL * n_),
-        acts(a), deltas(d), masks(mk) {}
-  // PE(x) of row r at stage s
-  __device__ float* act_x(int s, int r) const {
-    return acts + (static_cast<long long>(s) * n + r) * kXRows;
-  }
-  // h_l (l = 1 ... 8) of the warp's row 0 at stage s
-  __device__ float* act_h(int l, int s) const {
-    return acts + n4 * kXRows + (l - 1) * n4 * kW +
-           (static_cast<long long>(s) * n + first) * kW;
-  }
-  __device__ float* delta(int l, int s) const {
-    return deltas + l * n4 * kW + (static_cast<long long>(s) * n + first) * kW;
-  }
-  // the lane's ReLU mask word of layer l's output at stage s
-  __device__ uint4& mask(int l, int s) const {
-    return masks[((static_cast<long long>(blk) * kStages + s) * kLayers + l) *
-                     kThreads + tid];
-  }
-  // layer l's output at stage s, after its ReLU: h_{l+1} to the scratch
-  __device__ void keep_h(int l, int s, const float (&acc)[ROWS][kCols]) const {
-    store_rows<ROWS>(act_h(l + 1, s), first, n, lane, acc);
-  }
-  // and its mask, one bit an output (layers 0-6: the sweep reads h8 itself)
-  __device__ void keep_mask(int l, int s,
-                            const float (&acc)[ROWS][kCols]) const {
-    unsigned bits[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        if (acc[r][c] > 0.f) bits[(r * kCols + c) >> 5] |=
-            1u << ((r * kCols + c) & 31);
-    mask(l, s) = make_uint4(bits[0], bits[1], bits[2], bits[3]);
-  }
-};
-
 // The four stages again, as ode_rk4_kernel runs them (`rk4_stages`),
 // keeping each layer's input and output and the ReLU masks.
 template <int ROWS>
@@ -196,7 +113,7 @@ ode_rk4_recompute_kernel(const float* __restrict__ y, int row0, int n,
                          float h2, float h1, float* __restrict__ acts,
                          uint4* __restrict__ masks) {
   extern __shared__ __align__(16) float smem[];
-  const Place<ROWS> at(row0, n, blk0, acts, nullptr, masks);
+  const Place<ROWS, kStages> at(row0, n, blk0, acts, nullptr, masks);
   float y0[3], ks[3];
   rk4_stages<ROWS>(smem, at, y, n, w, bias, tbias, w_out, b_out, scale, h2,
                    h1, y0, ks);
@@ -218,7 +135,7 @@ ode_rk4_sweep_kernel(const float* __restrict__ gout, int row0, int n,
   float* stash = smem + kW * T::kStride;          // dL/dPE(x) from layer 5
   float* ring = smem + (kW + kXRows) * T::kStride;  // [kRing][16][256]
   float* gks = ring + kRing * kWide;              // [kBM][3]
-  const Place<ROWS> at(row0, n, blk0, acts, deltas, masks);
+  const Place<ROWS, kStages> at(row0, n, blk0, acts, deltas, masks);
   const int tid = at.tid, lane = at.lane, m0 = at.m0, first = at.first;
   const int row = at.row, my_row = at.my_row, part_ = at.part;
   const bool keeps = at.keeps;
@@ -226,10 +143,7 @@ ode_rk4_sweep_kernel(const float* __restrict__ gout, int row0, int n,
       part + static_cast<long long>(at.blk) * kStages * kPartRows * kW;
 
   int g = 0;                                      // slab of the sequence
-  for (int q = 0; q < kRing - 1; ++q) {
-    load_slab(ring, wt, q, tid);
-    cp_async_commit();
-  }
+  start_ring(ring, wt, tid);
   float acc[ROWS][kCols];
 
   // The row's cotangents live on its lanes: gyv (dL/dy), c1 = dt/6 g (k1's
@@ -418,169 +332,14 @@ ode_rk4_sweep_kernel(const float* __restrict__ gout, int row0, int n,
 }
 
 
-// ---- the weight-gradient pass
-constexpr int kGRing = 4;                       // K-slabs in flight
-constexpr int kGBK = 16;                        // rows of A and B a slab
-constexpr int kGHalf = 128;                     // output rows a block
-constexpr int kGAct = kGBK * kGHalf;            // floats of an A slab
-constexpr int kGB = kGBK * kW;                  // floats of a B slab
-constexpr int kGSmemBytes = 4 * kGRing * (kGAct + kGB);
-constexpr long long kWideOut = 7LL * kW * kW;
-constexpr long long kXOut = 2LL * kW * kXRows;
-constexpr long long kGradLen = kWideOut + kXOut;
-
-// One block: rows [half * 128, +128) of dW = A^T B over A's and B's rows
-// [kb, ke), A = the gradients at a layer's output (256 wide), B its input
-// (COLS * 32 wide), into out (128 x COLS * 32).
-template <int COLS>
-__device__ void wgrad_block(const float* __restrict__ a,
-                            const float* __restrict__ bsrc, int half,
-                            long long kb, long long ke,
-                            float* __restrict__ out, float* smem) {
-  constexpr int kB = COLS * 32;                 // B's width
-  float* aring = smem;                          // [kGRing][16][128]
-  float* bring = smem + kGRing * kGAct;         // [kGRing][16][kB]
-  const int tid = threadIdx.x, lane = tid & 31, m0 = (tid >> 5) * 16;
-  const int slabs = ke > kb ? static_cast<int>((ke - kb + kGBK - 1) / kGBK) : 0;
-  auto load = [&](int i) {
-    const long long k0 = kb + static_cast<long long>(i) * kGBK;
-    float* ad = aring + (i % kGRing) * kGAct;
-    float* bd = bring + (i % kGRing) * kGB;
-    for (int c = tid; c < kGAct / 4; c += kThreads) {
-      const int rr = c / (kGHalf / 4), c4 = c % (kGHalf / 4);
-      float* d = ad + rr * kGHalf + 4 * c4;
-      if (k0 + rr < ke)
-        cp_async16(d, a + (k0 + rr) * kW + half * kGHalf + 4 * c4);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    for (int c = tid; c < kGBK * kB / 4; c += kThreads) {
-      const int rr = c / (kB / 4), c4 = c % (kB / 4);
-      float* d = bd + rr * kB + 4 * c4;
-      if (k0 + rr < ke)
-        cp_async16(d, bsrc + (k0 + rr) * kB + 4 * c4);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  float acc[16][COLS];
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.f;
-  for (int i = 0; i < kGRing - 1; ++i) {
-    if (i < slabs) load(i);
-    cp_async_commit();
-  }
-  for (int i = 0; i < slabs; ++i) {
-    cp_async_wait<kGRing - 2>();
-    __syncthreads();
-    if (i + kGRing - 1 < slabs) load(i + kGRing - 1);
-    cp_async_commit();
-    const float* as = aring + (i % kGRing) * kGAct;
-    const float* bs = bring + (i % kGRing) * kGB;
-#pragma unroll
-    for (int k = 0; k < kGBK; ++k) {
-      float av[16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(as + k * kGHalf + m0 + 4 * q);
-        av[4 * q] = v.x, av[4 * q + 1] = v.y, av[4 * q + 2] = v.z,
-               av[4 * q + 3] = v.w;
-      }
-      float bv[COLS];
-      if constexpr (COLS == kCols) {
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(bs + k * kB + 4 * lane);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(bs + k * kB + 128 + 4 * lane);
-        bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
-        bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
-      } else {
-        const float2 b0 =
-            *reinterpret_cast<const float2*>(bs + k * kB + 2 * lane);
-        bv[0] = b0.x, bv[1] = b0.y;
-      }
-#pragma unroll
-      for (int r = 0; r < 16; ++r)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c)
-          acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    float* o = out + (m0 + r) * kB;
-    if constexpr (COLS == kCols) {
-      *reinterpret_cast<float4*>(o + 4 * lane) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      *reinterpret_cast<float4*>(o + 128 + 4 * lane) =
-          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    } else {
-      *reinterpret_cast<float2*>(o + 2 * lane) =
-          make_float2(acc[r][0], acc[r][1]);
-    }
-  }
-}
-
-// Blocks [0, 14 splits): the seven 256 x 256 blocks (W1 ... W4, W5h, W6,
-// W7), two halves each, split s = b / 14, over K-ranges of `per` rows;
-// then 4 xsplits blocks: the PE(x) blocks of W0 and W5, two halves each,
-// over K-ranges of `xper` rows (a quarter as many splits: a quarter of
-// the columns). Out: [splits][kWideOut], then [xsplits][kXOut].
+// The weight-gradient pass (`wgrad_pass`) over the four stages' scratch.
 __global__ void __launch_bounds__(kThreads, 1)
 ode_rk4_wgrad_kernel(const float* __restrict__ acts,
                      const float* __restrict__ deltas, long long n4,
                      int splits, long long per, long long xper,
                      float* __restrict__ wpart) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x;
-  const bool wide = b < 14 * splits;
-  const int split = wide ? b / 14 : (b - 14 * splits) / 4;
-  const int type = wide ? b % 14 : (b - 14 * splits) % 4;
-  const int piece = type / 2, half = type % 2;
-  const long long span = wide ? per : xper;
-  const long long kb = split * span;
-  const long long ke = kb + span < n4 ? kb + span : n4;
-  if (wide) {
-    const int l = piece + 1;                      // layer l: h_l, d_l
-    wgrad_block<kCols>(deltas + l * n4 * kW, acts + n4 * kXRows +
-                       (l - 1) * n4 * kW, half, kb, ke,
-                       wpart + split * kWideOut + piece * kW * kW +
-                           half * kGHalf * kW,
-                       smem);
-  } else {
-    const int l = piece == 0 ? 0 : 5;             // PE(x), d_0 or d_5
-    wgrad_block<2>(deltas + l * n4 * kW, acts, half, kb, ke,
-                   wpart + splits * kWideOut + split * kXOut +
-                       piece * kW * kXRows + half * kGHalf * kXRows,
-                   smem);
-  }
-}
-
-// out[i] = sum over r < parts of p[r][i], in r's order (len4 float4s)
-__global__ void sum_partials(const float4* __restrict__ p, long long parts,
-                             long long len4, float4* __restrict__ out) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= len4) return;
-  float4 s = p[i];
-  for (long long r = 1; r < parts; ++r) {
-    const float4 v = p[r * len4 + i];
-    s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
-  }
-  out[i] = s;
-}
-
-cudaError_t launch_sum(const float* p, long long parts, long long len,
-                       float* out, cudaStream_t stream) {
-  const long long len4 = len / 4;
-  sum_partials<<<static_cast<unsigned>((len4 + 255) / 256), 256, 0,
-                 stream>>>(reinterpret_cast<const float4*>(p), parts, len4,
-                           reinterpret_cast<float4*>(out));
-  return cudaGetLastError();
+  wgrad_pass(acts, deltas, n4, splits, per, xper, wpart, smem);
 }
 
 struct Args {
@@ -662,26 +421,8 @@ extern "C" int d3gs_ode_rk4_bwd(const float* y, const float* g, long long n,
   });
   if (err == cudaSuccess)
     err = launch_sum(part, blocks, kStages * kPartRows * kW, dpart, s);
-  if (err == cudaSuccess) {
-    const long long n4 = 4 * n;
-    const int xsplits = (splits + 3) / 4;
-    auto span = [&](int parts) {                  // rows a split, kGBK | it
-      return ((n4 + parts - 1) / parts + kGBK - 1) / kGBK * kGBK;
-    };
-    err = cudaFuncSetAttribute(ode_rk4_wgrad_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kGSmemBytes);
-    if (err == cudaSuccess) {
-      ode_rk4_wgrad_kernel<<<14 * splits + 4 * xsplits, kThreads,
-                             kGSmemBytes, s>>>(acts, deltas, n4, splits,
-                                               span(splits), span(xsplits),
-                                               wpart);
-      err = cudaGetLastError();
-    }
-    if (err == cudaSuccess) err = launch_sum(wpart, splits, kWideOut, dw, s);
-    if (err == cudaSuccess)
-      err = launch_sum(wpart + splits * kWideOut, xsplits, kXOut,
-                       dw + kWideOut, s);
-  }
+  if (err == cudaSuccess)
+    err = launch_wgrad(ode_rk4_wgrad_kernel, acts, deltas, 4 * n, splits,
+                       wpart, dw, s);
   return static_cast<int>(err);
 }

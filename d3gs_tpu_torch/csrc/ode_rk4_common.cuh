@@ -1,12 +1,15 @@
-// Shared by ode_rk4.cu (one RK4 step of the 8x256 ODE dynamics net) and
-// ode_rk4_bwd.cu (its vector-Jacobian product): the block's tiles, the
-// cp.async weight ring, the 16-row product and the output's reduction, the
-// four stages of a step (`rk4_stages`) and the wave planner of both C
-// entries. The step kernel runs the stages; the backward's recompute runs
-// them again and keeps what its sweep reads. The backward is the gradient
-// of what the forward computed only while the recompute repeats the
-// forward's arithmetic bit for bit (roundings, sinf / cosf, accumulation
-// order): one stage loop for both keeps it so.
+// Shared by ode_rk4.cu (one RK4 step of the 8x256 ODE dynamics net),
+// ode_rk4_bwd.cu (its vector-Jacobian product) and mlp_field.cu (the
+// deformation MLP, whose trunk is the same): the block's tiles, the
+// cp.async weight ring, the 16-row product and the output's reduction, one
+// evaluation of the trunk (`trunk_eval`), the four stages of a step
+// (`rk4_stages`) and the wave planner of the C entries. The step kernel
+// runs the stages; the backward's recompute runs them again and keeps
+// what its sweep reads. The backward is the gradient of what the forward
+// computed only while the recompute repeats the forward's arithmetic bit
+// for bit (roundings, sinf / cosf, accumulation order): one stage loop
+// for both keeps it so, and one trunk for the MLP's forward, which keeps
+// its backward's inputs itself.
 
 #pragma once
 
@@ -83,12 +86,23 @@ __device__ __forceinline__ void load_slab(float* ring, const float* w, int q,
   }
 }
 
-// Waits for slab g, keeps the ring kRing - 1 slabs ahead, returns slab g.
+// the first kRing - 1 slabs of a pass over w in flight
+__device__ __forceinline__ void start_ring(float* ring, const float* w,
+                                           int tid) {
+  for (int q = 0; q < kRing - 1; ++q) {
+    load_slab(ring, w, q, tid);
+    cp_async_commit();
+  }
+}
+
+// Waits for slab g of a pass of SEQ slabs (a step's: four stages), keeps
+// the ring kRing - 1 slabs ahead, returns slab g.
+template <int SEQ = kSeq>
 __device__ __forceinline__ const float* next_slab(float* ring, const float* w,
                                                   int g, int tid) {
   cp_async_wait<kRing - 2>();
   __syncthreads();
-  if (g + kRing - 1 < kSeq) load_slab(ring, w, g + kRing - 1, tid);
+  if (g + kRing - 1 < SEQ) load_slab(ring, w, g + kRing - 1, tid);
   cp_async_commit();
   return ring + (g % kRing) * kWide;
 }
@@ -242,13 +256,128 @@ struct Lane {
         keeps(r_lane < ROWS) {}
 };
 
+// One evaluation of the trunk for the block's rows, the s-th of its pass:
+// PE(xi) into Xs (xi: the lane's row, 0 past n), then layers 0-7 with
+// ReLU into acc (zero on entry), the weights from slab g of the pass's
+// SEQ on (g ends past the trunk's kSlabs), the biases of layers 0 and 5
+// from tb (c0 and c5 at this evaluation's time), the others from bias. On
+// return acc holds the lane's rows of h8 (layer 7's output) and Hs h7.
+// Where At::kStores (the backward's `Place`), PE(xi) (at.act_x), each
+// layer's output (at.keep_h) and its ReLU mask (at.keep_mask) are kept
+// besides, as evaluation s; the arithmetic is the same either way.
+template <int SEQ, int ROWS, class At>
+__device__ __forceinline__ void trunk_eval(
+    float* smem, const At& at, int s, const float (&xi)[3], int n,
+    const float* __restrict__ w, const float* __restrict__ bias,
+    const float* __restrict__ tb, int& g, float (&acc)[ROWS][kCols]) {
+  using T = Tile<ROWS>;
+  float* hs = smem;                               // [256][kStride]
+  float* xs = smem + kW * T::kStride;             // [64][kStride]
+  float* ring = smem + (kW + kXRows) * T::kStride;  // [kRing][16][256]
+
+  // PE(xi) into Xs: the row's first lane writes x, each of its lanes the
+  // sines and cosines of every kLanesPerRow-th frequency
+  if (at.keeps) {
+    float* ex = nullptr;                          // PE(xi) kept, if stored
+    bool st = false;
+    if constexpr (At::kStores) {
+      ex = at.act_x(s, at.row);
+      st = at.row < n;
+    }
+    if (at.part == 0) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        xs[act_index<ROWS>(j, at.my_row)] = xi[j];
+        if (st) ex[j] = xi[j];
+      }
+      if (st) ex[kXDim] = 0.f;
+    }
+    for (int f = at.part; f < kFreqs; f += T::kLanesPerRow) {
+      const float p = static_cast<float>(1 << f);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float v = xi[j] * p;
+        // the same values either way; at 12 rows a warp the recompute
+        // ran 6 % slower storing each before the next is computed, the
+        // forward took 2 registers more computing both first
+        if constexpr (At::kStores) {
+          const float sv = sinf(v), cv = cosf(v);
+          xs[act_index<ROWS>(3 + 6 * f + j, at.my_row)] = sv;
+          xs[act_index<ROWS>(6 + 6 * f + j, at.my_row)] = cv;
+          if (st) {
+            ex[3 + 6 * f + j] = sv;
+            ex[6 + 6 * f + j] = cv;
+          }
+        } else {
+          xs[act_index<ROWS>(3 + 6 * f + j, at.my_row)] = sinf(v);
+          xs[act_index<ROWS>(6 + 6 * f + j, at.my_row)] = cosf(v);
+        }
+      }
+    }
+  }
+
+  for (int l = 0; l < kLayers; ++l) {
+    const int g0 = g, nx = x_slabs(l);
+    for (int e = g + slab_count(l); g < e; ++g) {
+      const float* wt = next_slab<SEQ>(ring, w, g, at.tid);
+      const int qs = g - g0;
+      slab_fma<ROWS>(qs < nx ? xs : hs, (qs < nx ? qs : qs - nx) * kBK,
+                     at.m0, wt, at.lane, acc);
+    }
+    const float* b =
+        (l == 0 || l == 5) ? tb + (l == 5) * kW : bias + l * kW;
+    float bv[kCols];
+    load_cols(b, at.lane, bv);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        acc[r][c] = relu(__fadd_rn(acc[r][c], bv[c]));
+    if constexpr (At::kStores) at.keep_h(l, s, acc);
+    if (l == kLayers - 1) break;
+    if constexpr (At::kStores) at.keep_mask(l, s, acc);
+    __syncthreads();                              // every read of Hs done
+    to_hs<ROWS>(hs, at.m0, at.lane, acc);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+  }
+}
+
+// the three outputs w3 h8 (w3: 3 x 256, rows of an output layer) of row
+// my_row, on its lanes: per lane over its 8 columns, then over the warp
+template <int ROWS>
+__device__ __forceinline__ void three_outputs(
+    const float (&acc)[ROWS][kCols], const float* __restrict__ w3,
+    int lane, float (&out)[3]) {
+  constexpr int kSpan = Tile<ROWS>::kSpan;
+  float part_out[kSpan][3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float wo[kCols];
+    load_cols(w3 + j * kW, lane, wo);
+#pragma unroll
+    for (int r = 0; r < kSpan; ++r) {
+      float v = 0.f;
+      if (r < ROWS) {
+        v = acc[r][0] * wo[0];
+#pragma unroll
+        for (int c = 1; c < kCols; ++c) v = fmaf(acc[r][c], wo[c], v);
+      }
+      part_out[r][j] = v;
+    }
+  }
+  reduce_rows<kSpan>(part_out, lane, 16, out);
+}
+
 // The four stages of one RK4 step of the block's rows of y (n x 3) through
 // the net (w: the packed K-major trunk, bias, tbias, w_out, b_out, scale,
 // h2 = dt/2, h1 = dt: d3gs_ode_rk4's), in smem (Tile<ROWS>::kSmemBytes at
-// least). On return y0 is the lane's row of y (0 past n) and ks its
-// k1 + 2 k2 + 2 k3 + k4. Where At::kStores (the backward's `Place`), each stage also
-// stores PE(y_i) (at.act_x), each layer's output (at.keep_h) and its ReLU
-// mask (at.keep_mask); the arithmetic is the same either way.
+// least), each stage one `trunk_eval` and the output. On return y0 is the
+// lane's row of y (0 past n) and ks its k1 + 2 k2 + 2 k3 + k4. Where
+// At::kStores (the backward's `Place`), each stage also keeps what
+// `trunk_eval` keeps.
 template <int ROWS, class At>
 __device__ __forceinline__ void rk4_stages(
     float* smem, const At& at, const float* __restrict__ y, int n,
@@ -257,15 +386,9 @@ __device__ __forceinline__ void rk4_stages(
     const float* __restrict__ b_out, float scale, float h2, float h1,
     float (&y0)[3], float (&ks)[3]) {
   using T = Tile<ROWS>;
-  float* hs = smem;                               // [256][kStride]
-  float* xs = smem + kW * T::kStride;             // [64][kStride]
-  float* ring = smem + (kW + kXRows) * T::kStride;  // [kRing][16][256]
-
-  for (int q = 0; q < kRing - 1; ++q) {
-    load_slab(ring, w, q, at.tid);
-    cp_async_commit();
-  }
-  if (at.tid < T::kBM) xs[act_index<ROWS>(kXDim, at.tid)] = 0.f;
+  start_ring(smem + (kW + kXRows) * T::kStride, w, at.tid);
+  if (at.tid < T::kBM)
+    smem[kW * T::kStride + act_index<ROWS>(kXDim, at.tid)] = 0.f;
 
   float yi[3];
 #pragma unroll
@@ -283,100 +406,16 @@ __device__ __forceinline__ void rk4_stages(
 
   int g = 0;                                      // slab of the step
   for (int s = 0; s < kStages; ++s) {
-    // PE(y_i) into Xs: the row's first lane writes x, each of its lanes
-    // the sines and cosines of every kLanesPerRow-th frequency
-    if (at.keeps) {
-      float* ex = nullptr;                        // PE(y_i) kept, if stored
-      bool st = false;
-      if constexpr (At::kStores) {
-        ex = at.act_x(s, at.row);
-        st = at.row < n;
-      }
-      if (at.part == 0) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          xs[act_index<ROWS>(j, at.my_row)] = yi[j];
-          if (st) ex[j] = yi[j];
-        }
-        if (st) ex[kXDim] = 0.f;
-      }
-      for (int f = at.part; f < kFreqs; f += T::kLanesPerRow) {
-        const float p = static_cast<float>(1 << f);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float v = yi[j] * p;
-          // the same values either way; at 12 rows a warp the recompute
-          // ran 6 % slower storing each before the next is computed, the
-          // forward took 2 registers more computing both first
-          if constexpr (At::kStores) {
-            const float sv = sinf(v), cv = cosf(v);
-            xs[act_index<ROWS>(3 + 6 * f + j, at.my_row)] = sv;
-            xs[act_index<ROWS>(6 + 6 * f + j, at.my_row)] = cv;
-            if (st) {
-              ex[3 + 6 * f + j] = sv;
-              ex[6 + 6 * f + j] = cv;
-            }
-          } else {
-            xs[act_index<ROWS>(3 + 6 * f + j, at.my_row)] = sinf(v);
-            xs[act_index<ROWS>(6 + 6 * f + j, at.my_row)] = cosf(v);
-          }
-        }
-      }
-    }
     const int ti = s == 0 ? 0 : (s == 3 ? 2 : 1);  // t, t + dt/2, t + dt
-
-    for (int l = 0; l < kLayers; ++l) {
-      const int g0 = g, nx = x_slabs(l);
-      for (int e = g + slab_count(l); g < e; ++g) {
-        const float* wt = next_slab(ring, w, g, at.tid);
-        const int qs = g - g0;
-        slab_fma<ROWS>(qs < nx ? xs : hs, (qs < nx ? qs : qs - nx) * kBK,
-                       at.m0, wt, at.lane, acc);
-      }
-      const float* b = (l == 0 || l == 5)
-                           ? tbias + (2 * ti + (l == 5)) * kW
-                           : bias + l * kW;
-      float bv[kCols];
-      load_cols(b, at.lane, bv);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[r][c] = relu(__fadd_rn(acc[r][c], bv[c]));
-      if constexpr (At::kStores) at.keep_h(l, s, acc);
-      if (l == kLayers - 1) break;
-      if constexpr (At::kStores) at.keep_mask(l, s, acc);
-      __syncthreads();                            // every read of Hs done
-      to_hs<ROWS>(hs, at.m0, at.lane, acc);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-    }
-
+    trunk_eval<kSeq, ROWS>(smem, at, s, yi, n, w, bias, tbias + 2 * ti * kW,
+                           g, acc);
     // k_s = (W_out h + b_out) * scale, of row my_row on its lanes
-    float part_out[T::kSpan][3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float wo[kCols];
-      load_cols(w_out + j * kW, at.lane, wo);
-#pragma unroll
-      for (int r = 0; r < T::kSpan; ++r) {
-        float v = 0.f;
-        if (r < ROWS) {
-          v = acc[r][0] * wo[0];
-#pragma unroll
-          for (int c = 1; c < kCols; ++c) v = fmaf(acc[r][c], wo[c], v);
-        }
-        part_out[r][j] = v;
-      }
-    }
+    float k[3];
+    three_outputs<ROWS>(acc, w_out, at.lane, k);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-    float k[3];
-    reduce_rows<T::kSpan>(part_out, at.lane, 16, k);
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       k[j] = __fmul_rn(__fadd_rn(k[j], __ldg(b_out + j)), scale);

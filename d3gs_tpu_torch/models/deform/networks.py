@@ -33,20 +33,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ... import tracing
+from ...ops import mlp_field
+from ...ops.encoding import positional_encoding
 from ...ops.transforms import exp_se3
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def positional_encoding(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
-    """NeRF PE: [x, then per frequency 2^i: sin(x·2^i) for the d dims,
-    cos(x·2^i) for the d dims]."""
-    if num_freqs <= 0:
-        return x
-    freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
-    xf = x[..., None, :] * freqs[:, None]              # (..., m, d)
-    enc = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)
-    return torch.cat([x, enc.reshape(*x.shape[:-1], -1)], dim=-1)
 
 
 def pe_dim(d: int, num_freqs: int) -> int:
@@ -80,7 +72,13 @@ def _time_column(t, x: torch.Tensor) -> torch.Tensor:
 class DeformMLP(nn.Module):
     """forward(x (N,3), t (N,1) or scalar) -> (d_xyz, d_rot, d_scale);
     d_xyz is (N, 4, 4) SE(3) with is_6dof; with full_heads=False, d_rot =
-    d_scale = 0.0. The outputs are float32 for either compute dtype."""
+    d_scale = 0.0. The outputs are float32 for either compute dtype.
+
+    An evaluation that `ops/mlp_field.py::engages` (f32, 8x256, not 6DoF,
+    a CUDA x that takes no gradient, a host-number t) runs the fused
+    kernels there, under autograd through `_FusedMLP`; every other runs
+    the layers below. Each evaluation counts `deform.mlp.evals`, each fused
+    one `deform.mlp.fused` besides."""
 
     def __init__(self, D: int = 8, W: int = 256, multires: int = 10,
                  is_blender: bool = False, is_6dof: bool = False,
@@ -127,6 +125,11 @@ class DeformMLP(nn.Module):
         return torch.matmul(x.to(self.dtype), w.T) + b
 
     def forward(self, x: torch.Tensor, t):
+        tracing.count("deform.mlp.evals")
+        if mlp_field.engages(self, x, t):
+            tracing.count("deform.mlp.fused")
+            heads = mlp_field.evaluate(self, x, t)
+            return heads if self.full_heads else (heads[0], 0.0, 0.0)
         lin = self._lin
         t_emb = positional_encoding(_time_column(t, x), self.t_multires)
         if self.timenet is not None:

@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each `d3gs_tpu_torch/csrc/<name>.cu` has a plain C entry point and compiles
+Each `d3gs_tpu_torch/csrc/<name>.cu` has plain C entry points and compiles
 on its own into `build/lib<name>.so` at the repository root (git-ignored),
 at first use or when a source is newer than its library. Several sources
 compile concurrently, one nvcc each. No PyTorch headers are included, so a
@@ -93,10 +93,12 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def entry(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point `d3gs_<name>` of kernel `name`, with its argument
-    types set; it returns the launch's cudaError_t as an int."""
-    fn = getattr(load(name), "d3gs_" + name)
+def entry(name: str, argtypes,
+          symbol: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry point `d3gs_<symbol>` (default: `d3gs_<name>`) of kernel
+    `name`, with its argument types set; it returns the launch's
+    cudaError_t as an int."""
+    fn = getattr(load(name), "d3gs_" + (symbol or name))
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -25,18 +25,25 @@ vector-Jacobian product in the same form, by `csrc/ode_rk4_bwd.cu`
 (`rk4_step_vjp_cuda`) or in PyTorch (`rk4_step_vjp_torch`). `engages` is
 the rule by which `models/deform/ode.py::_substep` takes this path;
 `launch_counts()` reads the kernels' launches since the port's counters
-were last drained.
+were last drained. The trunk's packing (`TrunkPack`), its layers in the
+kernels' form (`trunk_torch`), `time_biases` and the trunk's gradients
+from a backward's parts (`trunk_grads`) serve `ops/mlp_field.py` too: the
+deformation MLP has the same trunk.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import TYPE_CHECKING
 
 import torch
 import torch.nn.functional as F
 
 from .. import tracing
-from ..models.deform.networks import DeformNetworkODE, positional_encoding
 from . import _build
+from .encoding import positional_encoding
+
+if TYPE_CHECKING:
+    from ..models.deform.networks import DeformNetworkODE
 
 WIDTH, DEPTH, SKIP, MULTIRES = 256, 8, 4, 10
 X_DIM = 63                      # PE(x, 10)
@@ -69,10 +76,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def qualifies(net) -> bool:
-    """The net is the fused step's: DeformNetworkODE, full MLP, PE, 8x256,
-    one skip after layer 4, PE(x, 10)."""
-    return (isinstance(net, DeformNetworkODE) and net.use_linear == 0
-            and net.use_emb and net.W == WIDTH and net.D == DEPTH
+    """The net is the fused step's: DeformNetworkODE (read by its
+    attributes: `ops` imports no `models`), full MLP, PE, 8x256, one skip
+    after layer 4, PE(x, 10)."""
+    return (getattr(net, "use_linear", None) == 0 and net.use_emb
+            and net.W == WIDTH and net.D == DEPTH
             and net.skips == (SKIP,) and net.multires == MULTIRES)
 
 
@@ -95,11 +103,15 @@ def stage_times(t, dt) -> tuple[float, float, float]:
     return float(t), t + dt * 0.5, t + dt
 
 
-class _Packed:
-    """The net's parameters in the kernel's layout (detached), for the
-    parameters' current values."""
+class TrunkPack:
+    """The trunk's parameters in the kernels' layouts (detached), for the
+    parameters' current values: `w` the forward kernels' K-major packing
+    (1,920 x 256: layer 0's PE(x) rows and a zero row, layers 1-4, layer
+    5's PE(x) rows, a zero row and its h rows, layers 6-7), `bias` (8, 256)
+    and the blocks the time input does not meet, W0[:, :63], W5[:, :63]
+    and W5[:, in:], as `nn.Linear` keeps them."""
 
-    def __init__(self, net: DeformNetworkODE):
+    def __init__(self, net):
         tr = net.trunk
         w = lambda i: tr[i].weight.detach()  # noqa: E731
         in_dim = tr[0].in_features
@@ -111,11 +123,19 @@ class _Packed:
                            + [w(i).T for i in range(SKIP + 2, DEPTH)]
                            ).contiguous()
         self.bias = torch.stack([lin.bias.detach() for lin in tr])
-        self.w_out = net.out.weight.detach().contiguous()
-        self.b_out = net.out.bias.detach().contiguous()
         self.w0_x = w(0)[:, :X_DIM]
         self.w5_x = w(SKIP + 1)[:, :X_DIM]
         self.w5_h = w(SKIP + 1)[:, in_dim:]
+
+
+class _Packed(TrunkPack):
+    """`TrunkPack` and the output layer and the backward's weights."""
+
+    def __init__(self, net: DeformNetworkODE):
+        super().__init__(net)
+        w = lambda i: net.trunk[i].weight.detach()  # noqa: E731
+        self.w_out = net.out.weight.detach().contiguous()
+        self.b_out = net.out.bias.detach().contiguous()
         # the backward's weights, out-major (as `nn.Linear` keeps them), in
         # the order its sweep reads them: W7, W6, W5[:, :63] padded to 64
         # columns, W5[:, in:], W4 ... W1, W0[:, :63] padded
@@ -127,15 +147,21 @@ class _Packed:
                             + [xpad(self.w0_x).reshape(-1)])
 
 
-def _packed(net: DeformNetworkODE) -> _Packed:
-    """The net's `_Packed`, rebuilt when a parameter was replaced or
-    changed in place (its version counter moved)."""
+def cached(net, attr: str, make):
+    """make(net), kept on the net as `attr` and made again when one of its
+    parameters was replaced or changed in place (its version counter
+    moved)."""
     key = tuple((p.data_ptr(), p._version) for p in net.parameters())
-    cached = getattr(net, "_ode_rk4_packed", None)
-    if cached is None or cached[0] != key:
-        cached = (key, _Packed(net))
-        net._ode_rk4_packed = cached
-    return cached[1]
+    found = getattr(net, attr, None)
+    if found is None or found[0] != key:
+        found = (key, make(net))
+        setattr(net, attr, found)
+    return found[1]
+
+
+def _packed(net: DeformNetworkODE) -> _Packed:
+    """The net's `_Packed`, for its parameters' current values."""
+    return cached(net, "_ode_rk4_packed", _Packed)
 
 
 def time_biases(net: DeformNetworkODE, times,
@@ -196,22 +222,31 @@ def _prologue(net, y: torch.Tensor, t, dt, g: torch.Tensor | None = None):
     return y.contiguous(), _packed(net), times, time_biases(net, times, y)
 
 
+def trunk_torch(net, pk, c0: torch.Tensor, c5: torch.Tensor,
+                x: torch.Tensor) -> list:
+    """The trunk in the kernels' form, in PyTorch operators, for the time
+    biases c0 and c5 at one time: each layer's input [PE(x), h1 ... h7]
+    and layer 7's output h8. pk: the net's `TrunkPack`."""
+    tr = net.trunk
+    hs = [positional_encoding(x, MULTIRES)]
+    hs.append(torch.relu(F.linear(hs[0], pk.w0_x, c0)))
+    for i in range(1, SKIP + 1):
+        hs.append(torch.relu(tr[i](hs[-1])))
+    hs.append(torch.relu(F.linear(hs[0], pk.w5_x)
+                         + F.linear(hs[-1], pk.w5_h) + c5))
+    for i in range(SKIP + 2, DEPTH):
+        hs.append(torch.relu(tr[i](hs[-1])))
+    return hs
+
+
 def _stages(net: DeformNetworkODE, pk: _Packed, tb: torch.Tensor,
             y: torch.Tensor, dt):
     """The step's four stages in the kernel's form, in PyTorch operators:
     each stage's k, and each stage's layer inputs [PE(x), h1 ... h7] and
     output h8."""
-    tr = net.trunk
 
     def f(ti: int, x: torch.Tensor):
-        hs = [positional_encoding(x, MULTIRES)]
-        hs.append(torch.relu(F.linear(hs[0], pk.w0_x, tb[ti, 0])))
-        for i in range(1, SKIP + 1):
-            hs.append(torch.relu(tr[i](hs[-1])))
-        hs.append(torch.relu(F.linear(hs[0], pk.w5_x)
-                             + F.linear(hs[-1], pk.w5_h) + tb[ti, 1]))
-        for i in range(SKIP + 2, DEPTH):
-            hs.append(torch.relu(tr[i](hs[-1])))
+        hs = trunk_torch(net, pk, tb[ti, 0], tb[ti, 1], x)
         return net.out(hs[-1]) * net.output_scale, hs
 
     out = [f(0, y)]
@@ -286,29 +321,22 @@ def _pe_vjp(e: torch.Tensor, ge: torch.Tensor) -> torch.Tensor:
     return ge[:, :3] + (gxf * freqs[:, None]).sum(1)
 
 
-def _param_grads(net: DeformNetworkODE, times, like: torch.Tensor,
-                 dw: torch.Tensor, dwx: torch.Tensor, db: torch.Tensor,
-                 need) -> list:
-    """Each parameter's gradient from the sweep's parts: dw (7, 256, 256)
-    the trunk blocks of `WIDE_LAYERS`, dwx (2, 256, 64) the PE(x) blocks
-    of W0 and W5, db (4, PART_ROWS, 256) per stage the column sums of the
-    gradients at layers 0-7's outputs (rows 0-7), dW_out (rows 8-10) and
-    db_out (row 11, columns 0-2). The time input's blocks W0[:, 63:],
-    W5[:, 63:in], b0, b5 and the time net take theirs by autograd through
-    `time_biases` on its 3 rows, from the layer 0 and 5 sums of the stages
-    that share a time."""
+def trunk_grads(net, times, like: torch.Tensor, dw: torch.Tensor,
+                dwx: torch.Tensor, dtb: torch.Tensor, dbias: dict,
+                want: set) -> dict:
+    """name -> gradient of each parameter in `want` of the trunk and the
+    time net, from a backward's parts: dw (7, 256, 256) the trunk blocks
+    of `WIDE_LAYERS`, dwx (2, 256, 64) the PE(x) blocks of W0 and W5, dtb
+    (len(times), 2, 256) the gradient at `time_biases`' output and dbias
+    the gradients of the biases of the layers but 0 and 5, by layer. The
+    time input's blocks W0[:, 63:], W5[:, 63:in], b0, b5 and the time net
+    take theirs by autograd through `time_biases` on its rows."""
     named = list(net.named_parameters())
-    need = [True] * len(named) if need is None else list(need)
-    want = {name for (name, _), n in zip(named, need) if n}
     l0, l5 = "trunk.0.", f"trunk.{SKIP + 1}."
     timed = [name for name, _ in named if name in want and (
         name.startswith(("timenet.", l0, l5)))]
     grads = {}
     if timed:
-        # by slices alone: an index tensor would be a copy from the host,
-        # which waits for the device
-        d = torch.stack([db[:, 0], db[:, SKIP + 1]], 1)
-        dtb = torch.stack([d[0], d[1] + d[2], d[3]])
         params = dict(named)
         with torch.enable_grad():
             tb = time_biases(net, times, like)
@@ -325,7 +353,29 @@ def _param_grads(net: DeformNetworkODE, times, like: torch.Tensor,
     for i, layer in enumerate(WIDE_LAYERS):
         if layer != SKIP + 1:
             grads[f"trunk.{layer}.weight"] = dw[i]
-            grads[f"trunk.{layer}.bias"] = db[:, layer].sum(0)
+            grads[f"trunk.{layer}.bias"] = dbias[layer]
+    return grads
+
+
+def _param_grads(net: DeformNetworkODE, times, like: torch.Tensor,
+                 dw: torch.Tensor, dwx: torch.Tensor, db: torch.Tensor,
+                 need) -> list:
+    """Each parameter's gradient from the sweep's parts: dw and dwx as
+    `trunk_grads` takes them, db (4, PART_ROWS, 256) per stage the column
+    sums of the gradients at layers 0-7's outputs (rows 0-7), dW_out (rows
+    8-10) and db_out (row 11, columns 0-2). The time biases' gradient at
+    each of the 3 times sums the layer 0 and 5 sums of the stages that
+    share it."""
+    named = list(net.named_parameters())
+    need = [True] * len(named) if need is None else list(need)
+    want = {name for (name, _), n in zip(named, need) if n}
+    # by slices alone: an index tensor would be a copy from the host, which
+    # waits for the device
+    d = torch.stack([db[:, 0], db[:, SKIP + 1]], 1)
+    dtb = torch.stack([d[0], d[1] + d[2], d[3]])
+    grads = trunk_grads(net, times, like, dw, dwx, dtb, {
+        layer: db[:, layer].sum(0) for layer in WIDE_LAYERS
+        if layer != SKIP + 1}, want)
     grads["out.weight"] = db[:, DEPTH:DEPTH + 3].sum(0)
     grads["out.bias"] = db[:, DEPTH + 3, :3].sum(0)
     return [grads[name] if n else None for (name, _), n in zip(named, need)]
